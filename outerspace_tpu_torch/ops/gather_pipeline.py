@@ -51,6 +51,8 @@ class GatherPart:
     p_out: int  # gather stream length
     p_real: int
     merge_pad: int  # merge stream length (gather stream + sentinel tail)
+    nab8: int  # 8-block refs of the part's own A / B packs, before the
+    nbb8: int  # zero blocks that pad the parts to one shape
     # per-slab-call owner-search depth (gplanner.call_search_bits),
     # common across the parts of one plan
     call_bits: tuple[int, ...]
@@ -71,9 +73,8 @@ class GatherPipelinePlan:
 
 
 def _to_device(host: dict, call_bits, ngroups: int, device) -> dict[str, torch.Tensor]:
-    """Copy staged host arrays to ``device``. The pack views are read-only,
-    so each array is copied into a fresh buffer first."""
-    dev = {k: torch.from_numpy(np.array(v)).to(device) for k, v in host.items()}
+    """Copy staged host arrays to ``device``."""
+    dev = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     dev["group_bits"] = torch.from_numpy(group_search_bits(call_bits, ngroups)).to(device)
     return dev
 
@@ -169,6 +170,8 @@ def plan_spgemm_gather(
                     p_out=stream_len,
                     p_real=plan.p_real,
                     merge_pad=merge_pad,
+                    nab8=plan.a_pack.shape[0] // 8,
+                    nbb8=plan.b_pack.shape[0] // 8,
                     call_bits=common_bits,
                     dev=_to_device(host, common_bits, ngroups_pad, device),
                 )
@@ -185,6 +188,8 @@ def plan_spgemm_gather(
                 p_out=plan.p_out,
                 p_real=plan.p_real,
                 merge_pad=max(plan.p_out, 4096),
+                nab8=plan.a_pack.shape[0] // 8,
+                nbb8=plan.b_pack.shape[0] // 8,
                 call_bits=bits,
                 dev=_to_device(gather_plan_to_host(plan), bits, plan.ngroups, device),
             )

@@ -42,15 +42,11 @@ def gather_plan_to_host(
     nab8_pad: int | None = None,
     nbb8_pad: int | None = None,
 ) -> dict[str, np.ndarray]:
-    """A GatherPlan's kernel arrays as host arrays (packs reshaped to
-    8-block refs). Explicit pad targets (≥ the natural sizes) let several
-    plans share one shape: padding groups are all-zero table rows
+    """A GatherPlan's kernel arrays as fresh host arrays (packs reshaped
+    to 8-block refs). Explicit pad targets (≥ the natural sizes) let
+    several plans share one shape: padding groups are all-zero table rows
     (plen = 0 ⇒ pure sentinel output), padding pack blocks are zeros
-    (reads are clamped in-bounds).
-
-    READ-ONLY RESULT: in the no-pad case ``a_pack``/``b_pack`` are
-    reshape *views aliasing* ``plan.a_pack``/``plan.b_pack``, returned
-    with ``writeable = False`` so an accidental in-place write raises."""
+    (reads are clamped in-bounds)."""
     nab8 = plan.a_pack.shape[0] // 8
     nbb8 = plan.b_pack.shape[0] // 8
     g = plan.ngroups
@@ -67,20 +63,10 @@ def gather_plan_to_host(
     table[:, :, 5] = plan.n  # n_cols broadcast into the table
     bases = np.zeros((ngroups_pad, 2), np.int32)
     bases[:g] = plan.bases
-    a_view = plan.a_pack.reshape(nab8, 8, 4, _BLK)
-    if nab8_pad == nab8:
-        a_pack = a_view
-        a_pack.flags.writeable = False
-    else:
-        a_pack = np.zeros((nab8_pad, 8, 4, _BLK), np.int32)
-        a_pack[:nab8] = a_view
-    b_view = plan.b_pack.reshape(nbb8, 8, 2, _BLK)
-    if nbb8_pad == nbb8:
-        b_pack = b_view
-        b_pack.flags.writeable = False
-    else:
-        b_pack = np.zeros((nbb8_pad, 8, 2, _BLK), np.int32)
-        b_pack[:nbb8] = b_view
+    a_pack = np.zeros((nab8_pad, 8, 4, _BLK), np.int32)
+    a_pack[:nab8] = plan.a_pack.reshape(nab8, 8, 4, _BLK)
+    b_pack = np.zeros((nbb8_pad, 8, 2, _BLK), np.int32)
+    b_pack[:nbb8] = plan.b_pack.reshape(nbb8, 8, 2, _BLK)
     return dict(
         bases=bases.reshape(-1),
         table=table,
