@@ -6,11 +6,21 @@ Run from the repository root:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (``outerspace_tpu_torch/csrc/*.cu``,
-into ``build/``), drives the main path — ``spgemm(A, A)`` through the
-windowed-gather pipeline — on two workloads and checks each result
-exactly against scipy, holds each kernel against its plain PyTorch
-version on the card at the main path's shapes, and times the kernels,
-their plain versions, ``torch.sort`` and the whole product.
+into ``build/``) and drives ``spgemm(A, A)`` through the user entry
+point on each path, checking every result exactly against scipy:
+
+- the windowed-gather pipeline (K1, sort, K2) on rmat14_ef8 and er100k;
+- the tiled pipeline on rmat14_ef8, packed (K3, K1, sort, K2) and with
+  ``packed=False`` (K4, K1, the two-key merge), and on er100k (rebased
+  row parts).
+
+Each path's kernel launch counts are set to 0 just before its run and
+read just after; a kernel of the path that was not launched fails the
+run. Then it holds each kernel against its plain PyTorch version on the
+card at the main path's shapes, and times the kernels, their plain
+versions, ``torch.sort`` and each pipeline's end-to-end split (CUDA
+events and the host clock), and each pipeline's and kernel's device
+activity (``torch.profiler``).
 
 Output: one line per phase with its seconds, a ``{"kernels": [...]}``
 JSON line, the card's name and power limit, and as the last line
@@ -67,7 +77,89 @@ def _median_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
+def _split_ms(torch, plan_fn, run_fn, samples: int = 3):
+    """End to end in three stages (host plan incl. staging, device
+    pipeline, fetch to CSR), host clock, the median sample by total."""
+    splits = []
+    for _ in range(samples):
+        ta = time.perf_counter()
+        plan = plan_fn()
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        merged = run_fn(plan)
+        torch.cuda.synchronize()
+        tc = time.perf_counter()
+        merged.to_csr()
+        td = time.perf_counter()
+        splits.append(((tb - ta) * 1e3, (tc - tb) * 1e3, (td - tc) * 1e3))
+    return sorted(splits, key=sum)[len(splits) // 2]
+
+
+# kernel name fragments (as CUPTI reports the demangled names) by kernel
+_FAMILIES = (("K1", "::gexpand_kernel"), ("K2", "::scan_kernel"),
+             ("K2", "::scan_corner_kernel"), ("K3", "::expand_kernel<true>"),
+             ("K4", "::expand_kernel<false>"))
+
+
+def _profile(torch, fn):
+    """Device activity over one call of ``fn`` (after a warm-up call),
+    from torch.profiler's CUPTI trace: ({kernel: [ms, launches]} with the
+    port's kernels by name and everything else as "other", busy ms, span
+    ms from the first device activity's start to the last one's end), or
+    None when the trace holds no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None
+    by = {}
+    for e in dev:
+        name = next((k for k, frag in _FAMILIES if frag in e.name), "other")
+        entry = by.setdefault(name, [0.0, 0])
+        entry[0] += e.time_range.elapsed_us() / 1e3
+        entry[1] += 1
+    busy = sum(ms for ms, _ in by.values())
+    span = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3
+    return by, busy, span
+
+
+def _profile_line(torch, label, fn) -> str:
+    got = _profile(torch, fn)
+    if got is None:
+        return f"{label} (profiler): no device activity recorded; not measured"
+    by, busy, span = got
+    parts = ", ".join(f"{k} {ms:.4f} ms in {n}" for k, (ms, n) in sorted(by.items()))
+    return (f"{label} (profiler): device busy {busy:.4f} ms of a {span:.4f} ms span "
+            f"(idle {100 * (1 - busy / span):.1f}%); {parts}")
+
+
+def _expand_bytes(np, sched, out_bytes: int) -> int:
+    """Bytes K3 / K4 must move for one class table: each task's table row
+    (16 B, padding tasks included), each distinct A slice's live
+    elements and each distinct live B lane once (8 B each), and
+    ``out_bytes`` per output slot of the padded table."""
+    _, first = np.unique(sched.a_start, return_index=True)
+    a_elems = int(sched.a_len[first].sum())
+    starts = sched.b_block.astype(np.int64) * 128 + sched.b_lo
+    ends = sched.b_block.astype(np.int64) * 128 + np.maximum(sched.b_hi, sched.b_lo)
+    edges = np.zeros((int(sched.b_block.max()) + 1) * 128 + 1, np.int64)
+    np.add.at(edges, starts, 1)
+    np.add.at(edges, ends, -1)
+    b_lanes = int((np.cumsum(edges)[:-1] > 0).sum())
+    return 16 * sched.ntasks_padded + 8 * (a_elems + b_lanes) + out_bytes * (
+        sched.padded_heavy
+    )
+
+
 def main() -> int:
+    t_start = time.perf_counter()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -81,9 +173,14 @@ def main() -> int:
         plan_spgemm_gather,
         spgemm_gather_padded,
     )
-    from outerspace_tpu_torch.ops.kernels import gexpand, scan
+    from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan
     from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_scipy
-    from outerspace_tpu_torch.ops.spgemm import I32_MAX
+    from outerspace_tpu_torch.ops.spgemm import (
+        I32_MAX,
+        TiledPartsPlan,
+        plan_tiled_parts,
+        spgemm_padded_tiled_parts,
+    )
     from outerspace_tpu_torch.runtime import build
     from outerspace_tpu_torch.sched.gplanner import GROUP_SUBS
 
@@ -105,30 +202,39 @@ def main() -> int:
                 print(f"  ptxas {name}: {ln.strip()}")
     _phase("build", t0)
 
-    kernels = {"K1": gexpand.KERNEL, "K2": scan.KERNEL}
+    kernels = {"K1": gexpand.KERNEL, "K2": scan.KERNEL,
+               "K3": expand.KERNEL_PACKED, "K4": expand.KERNEL_COORDS}
 
-    def drive(name, a):
-        """The main path once through the user entry point, counted."""
+    def drive(name, a, want, path, **kw):
+        """One path once through the user entry point, counted: every
+        kernel of ``path`` must launch."""
         t0 = time.perf_counter()
-        want = spgemm_scipy(a, a)
         for k in kernels.values():
             k.launches = 0
-        got = spgemm(a, a, device=dev)
+        got = spgemm(a, a, device=dev, **kw)
         torch.cuda.synchronize()
         counts = {n: k.launches for n, k in kernels.items()}
         assert_csr_allclose(got, want, rtol=VAL_RTOL, atol=VAL_ATOL)
         print(f"{name}: A² nnz {got.nnz} == scipy {want.nnz}, structure exact, "
-              f"values within rtol {VAL_RTOL} atol {VAL_ATOL}; launches {counts}")
-        for n, c in counts.items():
-            if c == 0:
+              f"values within rtol {VAL_RTOL} atol {VAL_ATOL}; launches per run {counts}")
+        for n in path:
+            if counts[n] == 0:
                 raise RuntimeError(f"{name}: kernel {n} was never launched")
         _phase(f"{name} main path", t0)
         return counts
 
     a1 = rmat(14, edge_factor=8, seed=1)
-    launches = drive("rmat14_ef8", a1)
     a2 = erdos_renyi(100_000, 100_000, 1e-4, seed=3)
-    drive("er100k", a2)
+    t0 = time.perf_counter()
+    want1, want2 = spgemm_scipy(a1, a1), spgemm_scipy(a2, a2)
+    _phase("scipy oracles", t0)
+    launches = drive("rmat14_ef8 gather", a1, want1, ("K1", "K2"), strategy="gather")
+    drive("er100k gather", a2, want2, ("K1", "K2"), strategy="gather")
+    tiles = drive("rmat14_ef8 tiles", a1, want1, ("K3", "K1", "K2"), strategy="tiles")
+    coords = drive("rmat14_ef8 tiles packed=False", a1, want1, ("K4", "K1"),
+                   strategy="tiles", packed=False)
+    drive("er100k tiles", a2, want2, ("K1", "K2"), strategy="tiles")
+    launches["K3"], launches["K4"] = tiles["K3"], coords["K4"]
 
     # ---- each kernel against its plain version, on workload 1's streams
     t0 = time.perf_counter()
@@ -168,6 +274,42 @@ def main() -> int:
     print(f"K1 == plain bit for bit on {len(plan.parts)} parts (values max |err| "
           f"{k1_err:.3e}); K2 structure and nnz exact, values max |err| {k2_err:.3e} "
           f"(rtol {VAL_RTOL}, atol {VAL_ATOL})")
+
+    # K3 and K4 on every (part, class) table of the rmat14 tiled plan
+    tplan = plan_tiled_parts(a_csc, b_csr, device=dev)
+    if not isinstance(tplan, TiledPartsPlan):
+        raise RuntimeError("rmat14_ef8 tiles: expected a row-parts plan")
+    print(f"rmat14_ef8 tiled plan: {len(tplan.parts)} parts, merge_pad {tplan.merge_pad}, "
+          f"rebased {tplan.rebased}")
+    tables = []
+    for lo, hi, tp in tplan.parts:
+        print(f"  rows [{lo}, {hi}): tasks per class "
+              f"{[(s.tile_a, s.ntasks, s.ntasks_padded) for s in tp.class_plan.classes]}, "
+              f"gather groups {tp.gather_ngroups}, stream {tp.padded_total}")
+        for sched, d in tp.class_tables():
+            args = tuple(d[k] for k in ("tasks", "a_rows_t", "a_vals_t", "b_cols_blk", "b_vals_blk"))
+            tables.append((sched, args, tp.n, tp.m))
+    k3_err = k4_err = 0.0
+    for sched, args, n_cols, sentinel in tables:
+        ta = sched.tile_a
+        got = expand.expand_tiles_packed(*args, tile_a=ta, n_cols=n_cols)
+        want = expand.expand_tiles_packed_plain(*args, tile_a=ta, n_cols=n_cols)
+        got_c = expand.expand_tiles_coords(*args, tile_a=ta, sentinel_row=sentinel)
+        want_c = expand.expand_tiles_coords_plain(*args, tile_a=ta, sentinel_row=sentinel)
+        torch.cuda.synchronize()
+        k3_err = max(k3_err, float((got[1] - want[1]).abs().max()))
+        k4_err = max(k4_err, float((got_c[2] - want_c[2]).abs().max()))
+        for nm, g, w in (("K3 keys", got[0], want[0]), ("K4 rows", got_c[0], want_c[0]),
+                         ("K4 cols", got_c[1], want_c[1])):
+            if not torch.equal(g, w):
+                raise RuntimeError(f"{nm} disagree with the plain version on a "
+                                   f"tile_a={ta} table: {int((g != w).sum())} differ")
+        for nm, g, w in (("K3", got[1], want[1]), ("K4", got_c[2], want_c[2])):
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise RuntimeError(f"{nm} values not bit-equal to the plain version "
+                                   f"on a tile_a={ta} table")
+    print(f"K3 and K4 == plain bit for bit on {len(tables)} (part, class) tables "
+          f"(values max |err| K3 {k3_err:.3e}, K4 {k4_err:.3e})")
     _phase("kernel check", t0)
 
     # ---- timing at workload 1's shapes (all parts of one run)
@@ -180,21 +322,32 @@ def main() -> int:
         return lambda: [fn(k, v, pad, n_cols=plan.n, sentinel_row=plan.m)
                         for k, v, pad in k2_in]
 
+    def run_k3(fn):
+        return lambda: [fn(*args, tile_a=s.tile_a, n_cols=n) for s, args, n, _ in tables]
+
+    def run_k4(fn):
+        return lambda: [fn(*args, tile_a=s.tile_a, sentinel_row=m) for s, args, _, m in tables]
+
     keys_raw = [gexpand.expand_gather(*args, b_win=p.b_win)[0] for args, p in k1_in]
     k1_ms = _median_ms(torch, run_k1(gexpand.expand_gather))
-    k1_plain_ms = _median_ms(torch, run_k1(gexpand.expand_gather_plain), reps=3)
+    k1_plain_ms = _median_ms(torch, run_k1(gexpand.expand_gather_plain), reps=3, warmup=1)
     k2_ms = _median_ms(torch, run_k2(scan.merge_epilogue_scan))
-    k2_plain_ms = _median_ms(torch, run_k2(scan.merge_epilogue_plain), reps=3)
+    k2_plain_ms = _median_ms(torch, run_k2(scan.merge_epilogue_plain), reps=3, warmup=1)
     sort_ms = _median_ms(torch, lambda: [torch.sort(k) for k in keys_raw])
+    k3_ms = _median_ms(torch, run_k3(expand.expand_tiles_packed))
+    k3_plain_ms = _median_ms(torch, run_k3(expand.expand_tiles_packed_plain), reps=3, warmup=1)
+    k4_ms = _median_ms(torch, run_k4(expand.expand_tiles_coords))
+    k4_plain_ms = _median_ms(torch, run_k4(expand.expand_tiles_coords_plain), reps=3, warmup=1)
+    _phase("timing: kernels by CUDA events", t0)
 
     # bound: the larger of bytes moved (each input byte the function needs
     # read once, each output written once) over the HBM rate and float32
-    # operations (K1: one multiply per real product; K2: one add per real
-    # slot) over the peak. K1 needs, per group, the base pair, the search
-    # depth, table lanes 0-3 and 6 of each subtile and lane 5 (n_cols) of
+    # operations (K1, K3, K4: one multiply per real product; K2: one add
+    # per real slot) over the peak. K1 needs, per group, the base pair, the
+    # search depth, table lanes 0-3 and 6 of each subtile and lane 5 (n_cols) of
     # one; the part's own A and B blocks (not the zero blocks that pad the
     # parts to one shape, which the clamped reads never reach); and writes
-    # 8 B per slot.
+    # 8 B per slot. K3 and K4: see _expand_bytes.
     k1_bytes = 0
     for (args, p), k in zip(k1_in, keys_raw):
         groups = args[1].shape[0]
@@ -202,46 +355,68 @@ def main() -> int:
         k1_bytes += p.nab8 * 8 * 4 * 128 * 4 + p.nbb8 * 8 * 2 * 128 * 4
         k1_bytes += k.numel() * 8
     k2_bytes = sum(k.numel() * (4 + 4 + 4 + 4 + 4 + 1) + 4 for k, _, _ in k2_in)
+    tile_products = sum(s.heavy_p for s, _, _, _ in tables)
+    k3_bytes = sum(_expand_bytes(np, s, 8) for s, _, _, _ in tables)
+    k4_bytes = sum(_expand_bytes(np, s, 12) for s, _, _, _ in tables)
     k1_bound, k1_by = _bound(k1_bytes, plan.flops)
     k2_bound, k2_by = _bound(k2_bytes, plan.flops)
+    k3_bound, k3_by = _bound(k3_bytes, tile_products)
+    k4_bound, k4_by = _bound(k4_bytes, tile_products)
     n_slots = sum(k.numel() for k in keys_raw)
-    print(f"rmat14_ef8 streams: {len(k1_in)} parts, {n_slots} slots "
+    tile_slots = sum(s.padded_heavy for s, _, _, _ in tables)
+    print(f"rmat14_ef8 gather streams: {len(k1_in)} parts, {n_slots} slots "
           f"({plan.flops} real products)")
+    pad_task_slots = sum((s.ntasks_padded - s.ntasks) * s.tile_a * 128 for s, _, _, _ in tables)
+    print(f"rmat14_ef8 tile tables: {len(tables)}, {tile_slots} slots "
+          f"({tile_products} real products; {pad_task_slots} slots of padding tasks); "
+          f"K3 {k3_bytes} B, K4 {k4_bytes} B to move")
     print(f"K1 {k1_ms:.4f} ms/run (plain {k1_plain_ms:.4f}, bound {k1_bound:.4f}); "
           f"K2 {k2_ms:.4f} ms/run (plain {k2_plain_ms:.4f}, bound {k2_bound:.4f}); "
           f"torch.sort {sort_ms:.4f} ms/run")
+    print(f"K3 {k3_ms:.4f} ms/run (plain {k3_plain_ms:.4f}, bound {k3_bound:.4f}); "
+          f"K4 {k4_ms:.4f} ms/run (plain {k4_plain_ms:.4f}, bound {k4_bound:.4f})")
 
-    # end to end, split into host plan, device pipeline and fetch to CSR
-    splits = []
-    for _ in range(3):
-        ta = time.perf_counter()
-        pl = plan_spgemm_gather(a_csc, b_csr, device=dev)
-        torch.cuda.synchronize()
-        tb = time.perf_counter()
-        merged = spgemm_gather_padded(pl)
-        torch.cuda.synchronize()
-        tc = time.perf_counter()
-        merged.to_csr()
-        td = time.perf_counter()
-        splits.append(((tb - ta) * 1e3, (tc - tb) * 1e3, (td - tc) * 1e3))
-    plan_ms, device_ms, fetch_ms = sorted(splits, key=lambda s: sum(s))[1]
-    print(f"rmat14_ef8 end to end {plan_ms + device_ms + fetch_ms:.3f} ms: host plan "
-          f"{plan_ms:.3f}, device {device_ms:.3f}, fetch to CSR {fetch_ms:.3f}")
+    pipelines = []
+    for name, plan_fn, run_fn in (
+        ("gather", lambda: plan_spgemm_gather(a_csc, b_csr, device=dev), spgemm_gather_padded),
+        ("tiles", lambda: plan_tiled_parts(a_csc, b_csr, device=dev), spgemm_padded_tiled_parts),
+    ):
+        plan_ms, device_ms, fetch_ms = _split_ms(torch, plan_fn, run_fn)
+        print(f"rmat14_ef8 {name} end to end {plan_ms + device_ms + fetch_ms:.3f} ms: "
+              f"host plan {plan_ms:.3f}, device {device_ms:.3f}, fetch to CSR {fetch_ms:.3f}")
+        pipelines.append((name, plan_fn(), run_fn))
+    _phase("timing: end-to-end splits", t0)
+    for name, pl, run_fn in pipelines:
+        print(_profile_line(torch, f"rmat14_ef8 {name} device pipeline",
+                            lambda: run_fn(pl)))
+    # one trace for the four kernels (each profiler session adds time),
+    # each run once at the main path's shapes; the split is by name
+    kernel_runs = (run_k1(gexpand.expand_gather), run_k2(scan.merge_epilogue_scan),
+                   run_k3(expand.expand_tiles_packed), run_k4(expand.expand_tiles_coords))
+    print(_profile_line(torch, "K1, K2, K3, K4 alone, one run each",
+                        lambda: [fn() for fn in kernel_runs]))
     _phase("timing", t0)
+    _phase("total (torch import to here)", t_start)
+
+    def row(name, route, source, replaces, key, err, ms, plain_ms, bound, by, library_ms):
+        return {"name": name, "route": route, "source": source, "replaces": replaces,
+                "launches": launches[key], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": library_ms}
 
     record = {"kernels": [
-        {"name": "K1 gexpand (windowed-gather expand)", "route": "cuda",
-         "source": "outerspace_tpu_torch/csrc/gexpand.cu",
-         "replaces": "outerspace_tpu/ops/pallas/gexpand.py:60",
-         "launches": launches["K1"], "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
-        {"name": "K2 scan (merge epilogue)", "route": "cuda",
-         "source": "outerspace_tpu_torch/csrc/scan.cu",
-         "replaces": "outerspace_tpu/ops/pallas/scan.py:57",
-         "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": sort_ms},
+        row("K1 gexpand (windowed-gather expand)", "cuda",
+            "outerspace_tpu_torch/csrc/gexpand.cu", "outerspace_tpu/ops/pallas/gexpand.py:60",
+            "K1", k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, None),
+        row("K2 scan (merge epilogue)", "cuda",
+            "outerspace_tpu_torch/csrc/scan.cu", "outerspace_tpu/ops/pallas/scan.py:57",
+            "K2", k2_err, k2_ms, k2_plain_ms, k2_bound, k2_by, sort_ms),
+        row("K3 expand_tiles_packed (dense-tile expand, packed keys)", "cuda",
+            "outerspace_tpu_torch/csrc/expand.cu", "outerspace_tpu/ops/pallas/expand.py:45",
+            "K3", k3_err, k3_ms, k3_plain_ms, k3_bound, k3_by, None),
+        row("K4 expand_tiles_coords (dense-tile expand, coordinates)", "cuda",
+            "outerspace_tpu_torch/csrc/expand.cu", "outerspace_tpu/ops/pallas/expand.py:87",
+            "K4", k4_err, k4_ms, k4_plain_ms, k4_bound, k4_by, None),
     ]}
     print(json.dumps(record))
     print(_card_line())

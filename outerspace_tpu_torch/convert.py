@@ -3,13 +3,17 @@
 The main path has no weights: its state is the operands and the plan.
 These take an operand's compressed arrays as numpy arrays (for example
 the ``indptr``/``indices``/``data`` of one of the JAX package's
-containers) and return the port's containers, so both packages can be
-fed the same operand.
+containers), or a tiled plan's host and staged arrays, and return the
+port's objects, so both packages can be fed the same operand or plan.
+Nothing here imports the other package: arrays are read through numpy.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from outerspace_tpu_torch.formats.csr import CSC, CSR
 
@@ -22,3 +26,66 @@ def csr_from_arrays(shape, indptr, indices, data) -> CSR:
 def csc_from_arrays(shape, indptr, indices, data) -> CSC:
     """The port's CSC from compressed-column arrays (copied)."""
     return CSC(tuple(shape), np.array(indptr), np.array(indices), np.array(data))
+
+
+def _tensors(arrays: dict, device) -> dict:
+    return {k: torch.from_numpy(np.array(v)).to(device) for k, v in arrays.items()}
+
+
+def _copy(x):
+    return np.array(x) if isinstance(x, np.ndarray) else x
+
+
+def tiled_plan_from_arrays(plan, device="cpu"):
+    """The port's ``TiledPlan`` or ``TiledPartsPlan`` from another
+    package's tiled plan of the same layout (for example the JAX
+    package's): the host schedules and the staged arrays are copied
+    field by field, array by array, so both packages can run one plan
+    and their streams can be compared."""
+    from outerspace_tpu_torch.ops.kernels.gexpand import group_search_bits
+    from outerspace_tpu_torch.ops.spgemm import TiledPartsPlan, TiledPlan
+    from outerspace_tpu_torch.ops.symbolic import ExpansionPlan
+    from outerspace_tpu_torch.sched.planner import ClassPlan, OuterProductSchedule
+
+    if hasattr(plan, "parts"):
+        return TiledPartsPlan(
+            plan.m, plan.n,
+            [(lo, hi, tiled_plan_from_arrays(tp, device)) for lo, hi, tp in plan.parts],
+            merge_pad=plan.merge_pad, rebased=plan.rebased,
+        )
+    cp = plan.class_plan
+    sched_fields = [f.name for f in dataclasses.fields(OuterProductSchedule)]
+    classes = [
+        OuterProductSchedule(**{f: _copy(getattr(c, f)) for f in sched_fields})
+        for c in cp.classes
+    ]
+    class_plan = ClassPlan(
+        classes, np.array(cp.light_k), int(cp.light_p),
+        np.array(cp.edge_k), np.array(cp.edge_jb), np.array(cp.edge_len),
+    )
+    src = plan.device_args
+    dev = {"classes": [None if d is None else _tensors(d, device) for d in src["classes"]]}
+    if "gather" in src:
+        dev["gather"] = _tensors(src["gather"], device)
+        dev["gather"]["group_bits"] = torch.from_numpy(
+            group_search_bits(plan.gather_call_bits, plan.gather_ngroups)
+        ).to(device)
+    light_plan = None
+    if plan.light_plan is not None:
+        lp = plan.light_plan
+        light_plan = ExpansionPlan(
+            **{f.name: _copy(getattr(lp, f.name)) for f in dataclasses.fields(ExpansionPlan)}
+        )
+        dev["light"] = _tensors(
+            {k: v for k, v in src["light"].items() if k != "p_total"}, device
+        )
+        dev["light"]["p_total"] = int(np.array(src["light"]["p_total"]))
+    return TiledPlan(
+        plan.m, plan.n, class_plan, light_plan, int(plan.light_pad), dev,
+        torch.device(device),
+        gather_ngroups=plan.gather_ngroups,
+        gather_p_out=plan.gather_p_out,
+        gather_p_real=plan.gather_p_real,
+        gather_b_win=plan.gather_b_win,
+        gather_call_bits=plan.gather_call_bits,
+    )

@@ -20,7 +20,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from outerspace_tpu_torch.formats.coo import INDEX_DTYPE, VALUE_DTYPE
 from outerspace_tpu_torch.formats.csr import CSC, CSR
 from outerspace_tpu_torch.ops.kernels.gexpand import (
     expand_gather,
@@ -30,6 +29,7 @@ from outerspace_tpu_torch.ops.kernels.gexpand import (
 from outerspace_tpu_torch.ops.spgemm import (
     I32_MAX,
     MergedCOO,
+    empty_csr,
     merge_biased_keys,
 )
 from outerspace_tpu_torch.sched.gplanner import (
@@ -238,10 +238,5 @@ def spgemm_gather(a, b, device: str | torch.device = "cuda") -> CSR:
     b_csr = b if isinstance(b, CSR) else b.to_csr()
     plan = plan_spgemm_gather(a_csc, b_csr, device=device)
     if not plan.parts:  # no partial products
-        return CSR(
-            (plan.m, plan.n),
-            np.zeros(plan.m + 1, dtype=np.int64),
-            np.zeros(0, dtype=INDEX_DTYPE),
-            np.zeros(0, dtype=VALUE_DTYPE),
-        )
+        return empty_csr(plan.m, plan.n)
     return spgemm_gather_padded(plan).to_csr()

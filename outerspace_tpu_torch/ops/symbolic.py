@@ -7,7 +7,7 @@ computed on the host before any device work.
 - bucketed padding sizes (``round_up_bucket``).
 
 A numpy copy of the JAX package's ``ops/symbolic.py`` trimmed to what the
-gather pipeline uses; both packages build identical plans from it.
+gather and tiled pipelines use; both packages build identical plans from it.
 """
 
 from __future__ import annotations
@@ -53,6 +53,10 @@ class ExpansionPlan:
     def expansion_size(self) -> int:
         """Exact partial-product count P (= multiply-phase FLOPs)."""
         return int(self.offsets[-1])
+
+    def padded_size(self, min_size: int = 256) -> int:
+        """The bucketed stream length (``round_up_bucket``) for P."""
+        return round_up_bucket(max(self.expansion_size, 1), min_size)
 
 
 def expansion_plan(a_csc: CSC, b_csr: CSR) -> ExpansionPlan:

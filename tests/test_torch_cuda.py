@@ -6,6 +6,8 @@ them:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -13,7 +15,12 @@ import torch
 from outerspace_tpu_torch.formats import COO, erdos_renyi, rmat
 from outerspace_tpu_torch.ops import assert_csr_allclose, spgemm, spgemm_scipy
 from outerspace_tpu_torch.ops.gather_pipeline import plan_spgemm_gather
-from outerspace_tpu_torch.ops.kernels import gexpand, scan
+from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan
+from outerspace_tpu_torch.ops.spgemm import plan_tiled, spgemm_padded_tiled
+
+import torch_cases  # tests/ is on sys.path under pytest
+
+big_shape_pair = functools.partial(torch_cases.big_shape_pair, COO)
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
@@ -85,3 +92,97 @@ def test_wrappers_reject_mixed_devices(cuda):
     key = torch.zeros(8, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         scan.merge_epilogue_scan(key, torch.zeros(8), 0, n_cols=4, sentinel_row=4)
+
+
+def random_tables(tile_a, ntasks=40, nblocks=16, seed=0):
+    """Every mask case: full tasks, short A slices, lane edges, an empty
+    lane range, and zero padding tasks; keys that wrap at m·n = 2³²."""
+    rng = np.random.default_rng(seed + tile_a)
+    real = ntasks - 8
+    tasks = np.zeros((ntasks, 4), np.int32)
+    b_lo = rng.integers(0, 64, size=real)
+    b_hi = rng.integers(64, 129, size=real)
+    b_lo[:2], b_hi[:2] = 0, 128
+    b_lo[2], b_hi[2] = 40, 40
+    tasks[:real] = np.stack(
+        [rng.integers(1, tile_a + 1, size=real), rng.integers(0, nblocks, size=real), b_lo, b_hi], 1
+    )
+    tasks[0, 0] = tile_a
+    return [
+        torch.from_numpy(x)
+        for x in (
+            tasks.reshape(-1),
+            rng.integers(0, 65536, size=(ntasks, tile_a)).astype(np.int32),
+            rng.normal(size=(ntasks, tile_a)).astype(np.float32),
+            rng.integers(0, 65536, size=(nblocks, 128)).astype(np.int32),
+            rng.normal(size=(nblocks, 128)).astype(np.float32),
+        )
+    ]
+
+
+def assert_bit_equal(got, want):
+    for g, w in zip(got, want):
+        g = g.view(torch.int32) if g.dtype == torch.float32 else g
+        w = w.view(torch.int32) if w.dtype == torch.float32 else w
+        assert torch.equal(g, w)
+
+
+def k3_k4_match_plain(args, tile_a, n_cols, sentinel_row):
+    before = (expand.KERNEL_PACKED.launches, expand.KERNEL_COORDS.launches)
+    got_p = expand.expand_tiles_packed(*args, tile_a=tile_a, n_cols=n_cols)
+    got_c = expand.expand_tiles_coords(*args, tile_a=tile_a, sentinel_row=sentinel_row)
+    want_p = expand.expand_tiles_packed_plain(*args, tile_a=tile_a, n_cols=n_cols)
+    want_c = expand.expand_tiles_coords_plain(*args, tile_a=tile_a, sentinel_row=sentinel_row)
+    torch.cuda.synchronize()
+    assert (expand.KERNEL_PACKED.launches, expand.KERNEL_COORDS.launches) == (before[0] + 1, before[1] + 1)
+    assert_bit_equal(got_p, want_p)
+    assert_bit_equal(got_c, want_c)
+
+
+@pytest.mark.parametrize("tile_a", [8, 32, 128])
+def test_k3_k4_kernels_bit_equal_to_plain(cuda, tile_a):
+    args = [t.to(cuda) for t in random_tables(tile_a)]
+    k3_k4_match_plain(args, tile_a, 65536, 65536)
+
+
+def test_k3_k4_kernels_bit_equal_on_a_plan(cuda):
+    g = rmat(10, edge_factor=16, seed=1)
+    tplan = plan_tiled(g.to_csc(), g.to_csr(), waste_limit=2.0, device=cuda)
+    tables = tplan.class_tables()
+    assert {s.tile_a for s, _ in tables} == {8, 32, 128}
+    for sched, d in tables:
+        args = [d[k] for k in ("tasks", "a_rows_t", "a_vals_t", "b_cols_blk", "b_vals_blk")]
+        k3_k4_match_plain(args, sched.tile_a, tplan.n, tplan.m)
+
+
+@pytest.mark.parametrize("packed", [None, False])
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: (rmat(12, edge_factor=8, seed=5),) * 2,
+        lambda: (rmat(10, edge_factor=16, seed=1),) * 2,
+        lambda: (erdos_renyi(70_000, 70_000, 2e-5, seed=6),) * 2,
+        big_shape_pair,
+    ],
+    ids=["rmat12", "rmat10_ef16", "er70k", "big_shape"],
+)
+def test_tiles_on_card_match_scipy(cuda, make, packed):
+    a, b = make()
+    got = spgemm(a, b, strategy="tiles", packed=packed, device=cuda)
+    assert_csr_allclose(got, spgemm_scipy(a, b), rtol=RTOL, atol=ATOL)
+
+
+def test_unsplit_big_plan_on_card_runs_k4_and_flat_residue(cuda):
+    a, b = big_shape_pair(seed=2)
+    tplan = plan_tiled(a.to_csc(), b.to_csr(), device=cuda)
+    assert tplan.light_plan is not None and tplan.class_tables()
+    before = expand.KERNEL_COORDS.launches
+    got = spgemm_padded_tiled(tplan).to_csr()
+    assert expand.KERNEL_COORDS.launches == before + len(tplan.class_tables())
+    assert_csr_allclose(got, spgemm_scipy(a, b), rtol=RTOL, atol=ATOL)
+
+
+def test_tiles_corner_2e32_on_card(cuda):
+    a = COO((65536, 2), [65535, 3], [0, 1], [1.5, 2.0])
+    b = COO((2, 65536), [0, 1], [65535, 7], [2.0, 1.0])
+    assert_csr_allclose(spgemm(a, b, strategy="tiles", device=cuda), spgemm_scipy(a, b), rtol=RTOL, atol=ATOL)

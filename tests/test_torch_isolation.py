@@ -41,6 +41,13 @@ from outerspace_tpu_torch.ops import assert_csr_allclose, spgemm, spgemm_scipy
 
 a = rmat(6, edge_factor=8, seed=5)
 assert_csr_allclose(spgemm(a, a, device="cpu"), spgemm_scipy(a, a), rtol=1e-5)
+# the tiled strategy: K3 (packed) and K4 (packed=False) on tile classes
+from outerspace_tpu_torch.ops.spgemm import plan_tiled
+t = rmat(8, edge_factor=16, seed=1)
+assert plan_tiled(t.to_csc(), t.to_csr(), waste_limit=2.0, device="cpu").class_tables()
+for packed in (None, False):
+    got = spgemm(t, t, strategy="tiles", packed=packed, device="cpu")
+    assert_csr_allclose(got, spgemm_scipy(t, t), rtol=1e-5, atol=1e-6)
 leaked = [m for m in sys.modules if m in Blocker.BLOCKED or m.startswith(("jax.", "outerspace_tpu."))]
 assert not leaked, leaked
 print("isolated", len(names))
@@ -55,7 +62,7 @@ def test_port_imports_and_runs_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("isolated")
-    assert int(out.stdout.split()[1]) >= 15
+    assert int(out.stdout.split()[1]) >= 24
 
 
 def port_sources():
@@ -69,7 +76,7 @@ def port_sources():
 
 def test_port_sources_name_no_jax():
     sources = list(port_sources())
-    assert len(sources) >= 17
+    assert len(sources) >= 29
     for path in sources:
         with open(path, encoding="utf-8") as f:
             text = f.read()

@@ -7,8 +7,10 @@ import stat
 
 import pytest
 
-from outerspace_tpu_torch.ops.kernels import gexpand, scan
+from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan
 from outerspace_tpu_torch.runtime import build
+
+KERNELS = (gexpand.KERNEL, scan.KERNEL, expand.KERNEL_PACKED, expand.KERNEL_COORDS)
 
 
 def test_nvcc_flags_target_hopper_without_torch_headers():
@@ -19,8 +21,11 @@ def test_nvcc_flags_target_hopper_without_torch_headers():
     for name in build.KERNEL_SOURCES:
         src = (build.CSRC / f"{name}.cu").read_text()
         assert "torch/extension.h" not in src
-        assert f'extern "C" int {name}_launch(' in src
         assert 'extern "C" const char* cuda_error_string(' in src
+    assert {k.source for k in KERNELS} == set(build.KERNEL_SOURCES)
+    for kernel in KERNELS:
+        src = (build.CSRC / f"{kernel.source}.cu").read_text()
+        assert f'extern "C" int {kernel.symbol}(' in src
 
 
 def test_library_path_tracks_source_and_flags(tmp_path, monkeypatch):
@@ -52,7 +57,8 @@ def fake_nvcc(tmp_path, fail_on=None):
 
 def test_build_compiles_missing_libraries_once(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(build, "nvcc_path", lambda: fake_nvcc(tmp_path))
+    nvcc = fake_nvcc(tmp_path)
+    monkeypatch.setattr(build, "nvcc_path", lambda: nvcc)
     reports = build.build()
     assert set(reports) == set(build.KERNEL_SOURCES)
     assert all("registers" in log for log in reports.values())
@@ -64,7 +70,8 @@ def test_build_compiles_missing_libraries_once(tmp_path, monkeypatch):
 
 def test_build_reports_compiler_errors(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(build, "nvcc_path", lambda: fake_nvcc(tmp_path, fail_on="scan"))
+    nvcc = fake_nvcc(tmp_path, fail_on="scan")
+    monkeypatch.setattr(build, "nvcc_path", lambda: nvcc)
     with pytest.raises(RuntimeError, match="nvcc failed on scan.cu:\n.*bad source"):
         build.build()
     assert build.library_path("gexpand").exists()
@@ -72,7 +79,7 @@ def test_build_reports_compiler_errors(tmp_path, monkeypatch):
 
 
 def test_kernels_load_lazily_and_count_launches():
-    for kernel in (gexpand.KERNEL, scan.KERNEL):
+    for kernel in KERNELS:
         assert isinstance(kernel, build.CudaKernel)
         assert kernel._fn is None  # nothing built or loaded at import
         assert kernel.launches == 0
