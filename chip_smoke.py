@@ -12,15 +12,20 @@ point on each path, checking every result exactly against scipy:
 - the windowed-gather pipeline (K1, sort, K2) on rmat14_ef8 and er100k;
 - the tiled pipeline on rmat14_ef8, packed (K3, K1, sort, K2) and with
   ``packed=False`` (K4, K1, the two-key merge), and on er100k (rebased
-  row parts).
+  row parts);
+- sparse-NN inference: ``SparseMLP`` (MLP1w 784-1000-1000-10, pruned to
+  1%) at batch 1024 and ``SparseLeNet`` (pruned LeNet) at batch 256, with
+  the committed trained weights, each serving four requests through K5
+  and checked against the dense torch model on the card (TF32 off); and
+  ``lenet_forward_spgemm`` on 8 images through SpGEMM (K1, K2).
 
 Each path's kernel launch counts are set to 0 just before its run and
 read just after; a kernel of the path that was not launched fails the
 run. Then it holds each kernel against its plain PyTorch version on the
 card at the main path's shapes, and times the kernels, their plain
-versions, ``torch.sort`` and each pipeline's end-to-end split (CUDA
-events and the host clock), and each pipeline's and kernel's device
-activity (``torch.profiler``).
+versions, ``torch.sort``, ``torch.matmul`` of K5's densified weights and
+each pipeline's end-to-end split (CUDA events and the host clock), and
+each pipeline's and kernel's device activity (``torch.profiler``).
 
 Output: one line per phase with its seconds, a ``{"kernels": [...]}``
 JSON line, the card's name and power limit, and as the last line
@@ -31,13 +36,19 @@ prints no last line. Without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 VAL_RTOL, VAL_ATOL = 1e-5, 1e-6  # summation order differs from the oracle
+NN_REL = 1e-5  # NN output vs the dense model, relative to its max |y|
+K5_REL = 1e-6  # K5 vs its plain version, relative to max |y|
+WEIGHTS = Path(__file__).resolve().parent / "data" / "saved_weights"
+MLP_BATCH, LENET_BATCH, REQUESTS = 1024, 256, 4
 
 
 def _phase(name: str, t0: float) -> None:
@@ -73,8 +84,7 @@ def _median_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+    return statistics.median(times)
 
 
 def _split_ms(torch, plan_fn, run_fn, samples: int = 3):
@@ -98,7 +108,7 @@ def _split_ms(torch, plan_fn, run_fn, samples: int = 3):
 # kernel name fragments (as CUPTI reports the demangled names) by kernel
 _FAMILIES = (("K1", "::gexpand_kernel"), ("K2", "::scan_kernel"),
              ("K2", "::scan_corner_kernel"), ("K3", "::expand_kernel<true>"),
-             ("K4", "::expand_kernel<false>"))
+             ("K4", "::expand_kernel<false>"), ("K5", "::spmm_kernel"))
 
 
 def _profile(torch, fn):
@@ -157,6 +167,48 @@ def _expand_bytes(np, sched, out_bytes: int) -> int:
     )
 
 
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _k5_work(np, meta, blocks, x) -> tuple[int, int]:
+    """Bytes K5 must move for one call (the stored blocks of the valid
+    slots, the X rows of each distinct block column they name, the meta,
+    Y) and its float32 operations (2·bm·bn·N_pad per valid slot)."""
+    nrb, mb, bm, bn = blocks.shape
+    n_pad = x.shape[1]
+    m = meta.cpu().numpy().reshape(nrb, mb, 3)
+    valid = m[:, :, 1] != 0
+    pairs = int(valid.sum())
+    x_rows = np.unique(m[:, :, 0][valid]).size * bn
+    nbytes = 4 * (pairs * bm * bn + x_rows * n_pad + meta.numel() + nrb * bm * n_pad)
+    return nbytes, 2 * bm * bn * n_pad * pairs
+
+
+def _k5_real_work(np, meta, blocks, dims) -> tuple[int, int]:
+    """The work a layer needs apart from the block format's zeros: bytes
+    of the valid slots' stored blocks, the unpadded X (in_dim × columns)
+    and Y (out_dim × columns); operations 2 per weight nonzero and column."""
+    nrb, mb, bm, bn = blocks.shape
+    in_dim, out_dim, cols = dims
+    valid = meta[:, 1] != 0
+    nnz = int((blocks.reshape(nrb * mb, bm, bn)[valid] != 0).sum())
+    nbytes = 4 * (int(valid.sum()) * bm * bn + (in_dim + out_dim) * cols)
+    return nbytes, 2 * nnz * cols
+
+
+def _dense_w(torch, meta, blocks, k_pad):
+    """K5's W as a dense padded (nrb·bm, K_pad) matrix on the card."""
+    nrb, mb, bm, bn = blocks.shape
+    w = torch.zeros((nrb, bm, k_pad // bn, bn), device=blocks.device)
+    m = meta.view(nrb, mb, 3).long()
+    for s in range(mb):
+        ok = m[:, s, 1] != 0
+        rb = torch.arange(nrb, device=blocks.device)[ok]
+        w[rb, :, m[ok, s, 0]] += blocks[rb, m[ok, s, 2]]
+    return w.reshape(nrb * bm, k_pad)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -167,13 +219,18 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    from outerspace_tpu_torch.convert import load_params, state_dict_from_params
     from outerspace_tpu_torch.formats import erdos_renyi, rmat
+    from outerspace_tpu_torch.nn import sparse_infer
+    from outerspace_tpu_torch.nn.data import synthetic_mnist
+    from outerspace_tpu_torch.nn.export import im2col
+    from outerspace_tpu_torch.nn.models import make_model
     from outerspace_tpu_torch.ops import spgemm
     from outerspace_tpu_torch.ops.gather_pipeline import (
         plan_spgemm_gather,
         spgemm_gather_padded,
     )
-    from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan
+    from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan, spmm
     from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_scipy
     from outerspace_tpu_torch.ops.spgemm import (
         I32_MAX,
@@ -203,7 +260,8 @@ def main() -> int:
     _phase("build", t0)
 
     kernels = {"K1": gexpand.KERNEL, "K2": scan.KERNEL,
-               "K3": expand.KERNEL_PACKED, "K4": expand.KERNEL_COORDS}
+               "K3": expand.KERNEL_PACKED, "K4": expand.KERNEL_COORDS,
+               "K5": spmm.KERNEL}
 
     def drive(name, a, want, path, **kw):
         """One path once through the user entry point, counted: every
@@ -235,6 +293,64 @@ def main() -> int:
                    strategy="tiles", packed=False)
     drive("er100k tiles", a2, want2, ("K1", "K2"), strategy="tiles")
     launches["K3"], launches["K4"] = tiles["K3"], coords["K4"]
+
+    # ---- sparse-NN inference: the trained weights, four requests per model
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # full-fp32 oracle and
+    torch.backends.cudnn.allow_tf32 = False  # yardstick (cuDNN defaults to TF32)
+    paths = {"MLP1w": WEIGHTS / "MLP1w" / "prune0p01_finetuned.pkl",
+             "LeNet": WEIGHTS / "LeNet" / "pruned_finetuned"}
+    missing = [str(p) for p in paths.values() if not p.exists()]
+    if missing:
+        raise FileNotFoundError(f"trained weights missing: {missing}")
+    params = {k: load_params(p) for k, p in paths.items()}
+    data = synthetic_mnist(REQUESTS * MLP_BATCH, seed=0)
+    images = np.concatenate([data[k][0] for k in ("train", "val", "test")])
+    served = {}
+    for name, cls, batch, per_call in (("MLP1w", sparse_infer.SparseMLP, MLP_BATCH, 3),
+                                       ("LeNet", sparse_infer.SparseLeNet, LENET_BATCH, 5)):
+        model = cls(params[name], device=dev)
+        dense = make_model(name).to(dev).eval()
+        dense.load_state_dict(state_dict_from_params(params[name]))
+        shape = (batch, 784) if name == "MLP1w" else (batch, 28, 28, 1)
+        requests = [images[i * batch:(i + 1) * batch].reshape(shape) for i in range(REQUESTS)]
+        for k in kernels.values():
+            k.launches = 0
+        outs = [model(x) for x in requests]
+        torch.cuda.synchronize()
+        counts = {n: k.launches for n, k in kernels.items()}
+        if counts["K5"] != per_call * REQUESTS or sum(counts.values()) != counts["K5"]:
+            raise RuntimeError(f"{name}: launches {counts}, want K5 {per_call} per request only")
+        with torch.no_grad():
+            errs = [_rel_err(y, dense(torch.from_numpy(x).to(dev))[0])
+                    for y, x in zip(outs, requests)]
+        if not all(e < NN_REL for e in errs):
+            raise RuntimeError(f"{name}: max |err| / max |y| {errs} over {NN_REL}")
+        print(f"{name} sparse b{batch}: {REQUESTS} requests, each within {NN_REL} of the dense "
+              f"model relative to max |y| ({', '.join(f'{e:.3e}' for e in errs)}); "
+              f"launches {counts}")
+        served[name] = (model, requests[0], dense)
+        launches["K5"] = launches.get("K5", 0) + counts["K5"]
+    _phase("sparse-NN main path", t0)
+
+    t0 = time.perf_counter()
+    _, x_lenet, dense = served["LeNet"]
+    x8 = x_lenet[:8]
+    for k in kernels.values():
+        k.launches = 0
+    got8 = sparse_infer.lenet_forward_spgemm(params["LeNet"], x8, backend="torch", device=dev)
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in kernels.items()}
+    if counts["K1"] == 0 or counts["K2"] == 0:
+        raise RuntimeError(f"lenet_forward_spgemm: launches {counts}, want K1 and K2")
+    with torch.no_grad():
+        want8 = dense(torch.from_numpy(x8).to(dev))[0]
+    e8 = _rel_err(torch.from_numpy(got8).to(dev), want8)
+    if not e8 < NN_REL:
+        raise RuntimeError(f"lenet_forward_spgemm: max |err| / max |y| {e8:.3e} over {NN_REL}")
+    print(f"LeNet through SpGEMM, 8 images: within {NN_REL} of the dense model ({e8:.3e}); "
+          f"launches {counts}")
+    _phase("sparse-NN SpGEMM witness", t0)
 
     # ---- each kernel against its plain version, on workload 1's streams
     t0 = time.perf_counter()
@@ -310,6 +426,49 @@ def main() -> int:
                                    f"on a tile_a={ta} table")
     print(f"K3 and K4 == plain bit for bit on {len(tables)} (part, class) tables "
           f"(values max |err| K3 {k3_err:.3e}, K4 {k4_err:.3e})")
+
+    # K5 at every layer's real inputs, caught from one forward of each
+    # model, with each layer's unpadded (in_dim, out_dim, columns)
+    k5_calls, k5_real = {}, {}
+    real_k5 = sparse_infer.spmm_blockell_device
+
+    def catching(calls):
+        def catch(meta, blocks, x, tn):
+            calls.append((meta, blocks, x.clone(), tn))
+            return real_k5(meta, blocks, x, tn)
+        return catch
+
+    def recording(dims):
+        return lambda layer, inp, _: dims.append((layer.in_dim, layer.out_dim, inp[0].shape[1]))
+
+    hooks = []
+    try:
+        for model_name, (model, x, _) in served.items():
+            k5_calls[model_name], k5_real[model_name] = [], []
+            sparse_infer.spmm_blockell_device = catching(k5_calls[model_name])
+            hooks += [layer.register_forward_hook(recording(k5_real[model_name]))
+                      for layer in model.modules() if isinstance(layer, sparse_infer.SparseLayer)]
+            model(x)
+    finally:
+        sparse_infer.spmm_blockell_device = real_k5
+        for h in hooks:
+            h.remove()
+    k5_err = 0.0
+    for model_name, calls in k5_calls.items():
+        for li, call in enumerate(calls):
+            got, want = spmm.spmm_blockell_device(*call), spmm.spmm_blockell_plain(*call[:3])
+            torch.cuda.synchronize()
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            if not err <= K5_REL * scale:
+                raise RuntimeError(f"K5 disagrees with its plain version on {model_name} layer "
+                                   f"{li}: max |err| {err:.3e}, max |y| {scale:.3e}")
+            k5_err = max(k5_err, err)
+            nrb, mb, bm, bn = call[1].shape
+            print(f"  K5 {model_name} layer {li}: W {nrb}x{mb} slots of ({bm}, {bn}), "
+                  f"{int((call[0][:, 1] != 0).sum())} stored, X {tuple(call[2].shape)}: "
+                  f"max |err| {err:.3e} (max |y| {scale:.3e})")
+    print(f"K5 within {K5_REL} x max |y| of plain at all "
+          f"{sum(map(len, k5_calls.values()))} layer shapes (max |err| {k5_err:.3e})")
     _phase("kernel check", t0)
 
     # ---- timing at workload 1's shapes (all parts of one run)
@@ -338,6 +497,13 @@ def main() -> int:
     k3_plain_ms = _median_ms(torch, run_k3(expand.expand_tiles_packed_plain), reps=3, warmup=1)
     k4_ms = _median_ms(torch, run_k4(expand.expand_tiles_coords))
     k4_plain_ms = _median_ms(torch, run_k4(expand.expand_tiles_coords_plain), reps=3, warmup=1)
+    all_k5 = [c for calls in k5_calls.values() for c in calls]
+    dense_ws = [_dense_w(torch, c[0], c[1], c[2].shape[0]) for c in all_k5]
+    k5_layer_ms = [_median_ms(torch, lambda c=c: spmm.spmm_blockell_device(*c)) for c in all_k5]
+    k5_ms = _median_ms(torch, lambda: [spmm.spmm_blockell_device(*c) for c in all_k5])
+    k5_plain_ms = _median_ms(torch, lambda: [spmm.spmm_blockell_plain(*c[:3]) for c in all_k5],
+                             reps=3, warmup=1)
+    k5_lib_ms = _median_ms(torch, lambda: [torch.matmul(w, c[2]) for w, c in zip(dense_ws, all_k5)])
     _phase("timing: kernels by CUDA events", t0)
 
     # bound: the larger of bytes moved (each input byte the function needs
@@ -375,6 +541,28 @@ def main() -> int:
           f"torch.sort {sort_ms:.4f} ms/run")
     print(f"K3 {k3_ms:.4f} ms/run (plain {k3_plain_ms:.4f}, bound {k3_bound:.4f}); "
           f"K4 {k4_ms:.4f} ms/run (plain {k4_plain_ms:.4f}, bound {k4_bound:.4f})")
+    k5_work = [_k5_work(np, c[0], c[1], c[2]) for c in all_k5]
+    k5_bound, k5_by = _bound(sum(b for b, _ in k5_work), sum(f for _, f in k5_work))
+    li = 0
+    for model_name, calls in k5_calls.items():
+        work = k5_work[li:li + len(calls)]
+        fwd_bound, fwd_by = _bound(sum(b for b, _ in work), sum(f for _, f in work))
+        layers = ", ".join(
+            f"{ms:.4f} (bound {_bound(*wk)[0]:.4f} by {_bound(*wk)[1]}, {wk[0]} B, {wk[1]} flop)"
+            for ms, wk in zip(k5_layer_ms[li:li + len(calls)], work))
+        fwd_ms = sum(k5_layer_ms[li:li + len(calls)])
+        print(f"K5 {model_name} per layer ms: {layers}; summed {fwd_ms:.4f} "
+              f"ms per forward (bound {fwd_bound:.4f} by {fwd_by})")
+        real = [_k5_real_work(np, c[0], c[1], d) for c, d in zip(calls, k5_real[model_name])]
+        real_b, real_f = sum(b for b, _ in real), sum(f for _, f in real)
+        floor, floor_by = _bound(real_b, real_f)
+        print(f"K5 {model_name} nonzero work per forward (no multiplications by stored zeros, "
+              f"no padded rows or columns): {real_f} flop, {real_b} B; floor {floor:.4f} ms by "
+              f"{floor_by}, {100 * floor / fwd_ms:.1f}% of the summed per-layer time")
+        li += len(calls)
+    print(f"K5 {k5_ms:.4f} ms for one MLP1w and one LeNet forward's {len(all_k5)} layers "
+          f"(plain {k5_plain_ms:.4f}, torch.matmul of the densified W {k5_lib_ms:.4f}, "
+          f"bound {k5_bound:.4f} by {k5_by})")
 
     pipelines = []
     for name, plan_fn, run_fn in (
@@ -386,14 +574,50 @@ def main() -> int:
               f"host plan {plan_ms:.3f}, device {device_ms:.3f}, fetch to CSR {fetch_ms:.3f}")
         pipelines.append((name, plan_fn(), run_fn))
     _phase("timing: end-to-end splits", t0)
+    t1 = time.perf_counter()
+    for model_name, (model, x, _) in served.items():
+        model(x)
+        torch.cuda.synchronize()
+        req = []
+        for _ in range(10):
+            ta = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            req.append((time.perf_counter() - ta) * 1e3)
+        x_dev = torch.from_numpy(x).to(dev)
+        fwd_ms = _median_ms(torch, lambda: model(x_dev))
+        print(f"{model_name} b{x.shape[0]} per request (host batch in, host clock, median of 10) "
+              f"{statistics.median(req):.4f} ms; forward on the card's batch (CUDA events) {fwd_ms:.4f} ms")
+        if model_name == "LeNet":
+            x4 = x_dev.reshape(-1, 28, 28, 1)
+            pool1 = torch.rand((x4.shape[0], 14, 14, 6), device=dev)
+
+            def unfold_rows(h, k, pad):  # the same rows by F.unfold
+                cols = torch.nn.functional.unfold(h.permute(0, 3, 1, 2), k, padding=pad)
+                return cols.transpose(1, 2).reshape(-1, cols.shape[1])
+
+            for h, pad in ((x4, 2), (pool1, 0)):
+                if not torch.equal(im2col(h, 5, pad), unfold_rows(h, 5, pad)):
+                    raise RuntimeError("im2col disagrees with F.unfold")
+            i2c_ms = _median_ms(torch, lambda: (im2col(x4, 5, 2), im2col(pool1, 5, 0)))
+            unfold_ms = _median_ms(torch, lambda: (unfold_rows(x4, 5, 2), unfold_rows(pool1, 5, 0)))
+            print(f"LeNet b{x.shape[0]} im2col (both convs) {i2c_ms:.4f} ms, "
+                  f"{100 * i2c_ms / fwd_ms:.1f}% of the forward (the same rows by F.unfold "
+                  f"{unfold_ms:.4f} ms)")
+    _phase("timing: sparse-NN end to end", t1)
     for name, pl, run_fn in pipelines:
         print(_profile_line(torch, f"rmat14_ef8 {name} device pipeline",
                             lambda: run_fn(pl)))
+    for model_name, (model, x, _) in served.items():
+        x_dev = torch.from_numpy(x).to(dev)
+        print(_profile_line(torch, f"{model_name} b{x.shape[0]} sparse forward",
+                            lambda: model(x_dev)))
     # one trace for the four kernels (each profiler session adds time),
     # each run once at the main path's shapes; the split is by name
     kernel_runs = (run_k1(gexpand.expand_gather), run_k2(scan.merge_epilogue_scan),
-                   run_k3(expand.expand_tiles_packed), run_k4(expand.expand_tiles_coords))
-    print(_profile_line(torch, "K1, K2, K3, K4 alone, one run each",
+                   run_k3(expand.expand_tiles_packed), run_k4(expand.expand_tiles_coords),
+                   lambda: [spmm.spmm_blockell_device(*c) for c in all_k5])
+    print(_profile_line(torch, "K1, K2, K3, K4 alone, one run each; K5 one layer set",
                         lambda: [fn() for fn in kernel_runs]))
     _phase("timing", t0)
     _phase("total (torch import to here)", t_start)
@@ -417,6 +641,9 @@ def main() -> int:
         row("K4 expand_tiles_coords (dense-tile expand, coordinates)", "cuda",
             "outerspace_tpu_torch/csrc/expand.cu", "outerspace_tpu/ops/pallas/expand.py:87",
             "K4", k4_err, k4_ms, k4_plain_ms, k4_bound, k4_by, None),
+        row("K5 spmm_blockell_device (block-ELL SpMM)", "cuda",
+            "outerspace_tpu_torch/csrc/spmm.cu", "outerspace_tpu/ops/pallas/spmm_kernel.py:30",
+            "K5", k5_err, k5_ms, k5_plain_ms, k5_bound, k5_by, k5_lib_ms),
     ]}
     print(json.dumps(record))
     print(_card_line())

@@ -4,13 +4,17 @@ SpGEMM framework, for one NVIDIA H100.
 It mirrors the JAX package's layout so each module's counterpart is easy
 to find, and it imports nothing of that package:
 
-- ``formats``  — COO / CSR / CSC containers, Matrix Market reader,
-  Erdős–Rényi and R-MAT generators (numpy, bit-identical to the JAX
-  package's for the same seed).
-- ``sched``    — the windowed-gather host planner (numpy).
-- ``ops``      — the single-device SpGEMM main path: host plan, the
-  gather expand kernel (K1), ``torch.sort``, the merge epilogue kernel
-  (K2), and compaction to CSR.
+- ``formats``  — COO / CSR / CSC containers, block-ELL, Matrix Market
+  reader, Erdős–Rényi and R-MAT generators (numpy, bit-identical to the
+  JAX package's for the same seed).
+- ``sched``    — the windowed-gather and tile host planners (numpy).
+- ``ops``      — single-device SpGEMM: host plan, the expand kernels
+  (K1 gather, K3 / K4 dense tiles), ``torch.sort``, the merge epilogue
+  kernel (K2), and compaction to CSR; and K5, the block-ELL SpMM.
+- ``nn``       — sparse-NN inference: ``SparseMLP`` / ``SparseLeNet``
+  through K5, the SpGEMM forwards, the dense torch models.
+- ``convert``  — operands, plans and trained weights carried across from
+  the JAX package's formats.
 - ``runtime``  — builds the hand-written CUDA kernels in ``csrc/`` with
   ``nvcc`` at first use and loads them with ``ctypes``.
 

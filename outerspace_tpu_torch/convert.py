@@ -1,16 +1,21 @@
 """State carried across from the JAX package.
 
-The main path has no weights: its state is the operands and the plan.
-These take an operand's compressed arrays as numpy arrays (for example
-the ``indptr``/``indices``/``data`` of one of the JAX package's
+SpGEMM has no weights: its state is the operands and the plan. These
+take an operand's compressed arrays as numpy arrays (for example the
+``indptr``/``indices``/``data`` of one of the JAX package's
 containers), or a tiled plan's host and staged arrays, and return the
 port's objects, so both packages can be fed the same operand or plan.
-Nothing here imports the other package: arrays are read through numpy.
+The sparse-NN path's state is the trained weights: the flax parameter
+dicts of numpy arrays that the JAX package pickles
+(``data/saved_weights/``), loaded here without JAX and turned into the
+torch models' ``state_dict``. Nothing here imports the other package:
+arrays are read through numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 
 import numpy as np
 import torch
@@ -89,3 +94,31 @@ def tiled_plan_from_arrays(plan, device="cpu"):
         gather_b_win=plan.gather_b_win,
         gather_call_bits=plan.gather_call_bits,
     )
+
+
+def load_params(path: str):
+    """A pickled flax parameter dict: ``{"Dense_i" | "Conv_i": {"kernel",
+    "bias"}}`` of numpy float32 arrays (the JAX package's
+    ``nn/train.py:save_params`` format; the pickles name ``numpy._core``,
+    so they need numpy ≥ 2)."""
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def state_dict_from_params(params) -> dict[str, torch.Tensor]:
+    """The flax parameter dict as the ``state_dict`` of the matching
+    ``nn.models.make_model`` model: ``Conv_i`` → ``conv.i``,
+    ``Dense_i`` → ``dense.i`` (in sorted order), Dense kernels (in, out)
+    → Linear weights (out, in), Conv kernels (kh, kw, in, out) → Conv2d
+    weights (out, in, kh, kw). ``load_state_dict`` (strict by default)
+    raises on a missing layer or a wrong shape."""
+    sd = {}
+    for prefix, perm in (("Conv", (3, 2, 0, 1)), ("Dense", (1, 0))):
+        names = sorted(k for k in params if k.startswith(prefix))
+        for i, name in enumerate(names):
+            kernel = np.transpose(np.asarray(params[name]["kernel"], np.float32), perm)
+            sd[f"{prefix.lower()}.{i}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel))
+            sd[f"{prefix.lower()}.{i}.bias"] = torch.from_numpy(
+                np.array(params[name]["bias"], np.float32)
+            )
+    return sd

@@ -67,6 +67,10 @@ class COO:
     def transpose(self) -> "COO":
         return COO((self.shape[1], self.shape[0]), self.col, self.row, self.val)
 
+    @property
+    def T(self) -> "COO":
+        return self.transpose()
+
     def to_csr(self):
         from outerspace_tpu_torch.formats.csr import CSR
 
@@ -76,6 +80,11 @@ class COO:
         from outerspace_tpu_torch.formats.csr import CSC
 
         return CSC.from_coo(self)
+
+    def to_dense(self) -> np.ndarray:
+        d = np.zeros(self.shape, dtype=VALUE_DTYPE)
+        np.add.at(d, (self.row, self.col), self.val)
+        return d
 
     def to_scipy(self):
         import scipy.sparse as sp
@@ -88,6 +97,13 @@ class COO:
     def from_scipy(cls, m) -> "COO":
         m = m.tocoo()
         return cls(m.shape, m.row, m.col, m.data)
+
+    @classmethod
+    def from_dense(cls, d: np.ndarray, tol: float = 0.0) -> "COO":
+        """Nonzeros of ``d`` (with ``tol``: entries with |x| > tol), row-major."""
+        d = np.asarray(d)
+        r, c = np.nonzero(np.abs(d) > tol) if tol else np.nonzero(d)
+        return cls(d.shape, r, c, d[r, c])
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"COO(shape={self.shape}, nnz={self.nnz})"

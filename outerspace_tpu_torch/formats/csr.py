@@ -70,6 +70,9 @@ class CSR(_Compressed):
     def to_csc(self) -> "CSC":
         return CSC.from_coo(self.to_coo())
 
+    def to_dense(self) -> np.ndarray:
+        return self.to_coo().to_dense()
+
     def to_scipy(self):
         import scipy.sparse as sp
 

@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("gexpand", "scan", "expand")
+KERNEL_SOURCES = ("gexpand", "scan", "expand", "spmm")
 
 
 def nvcc_path() -> str:

@@ -7,15 +7,20 @@ them:
 """
 
 import functools
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from outerspace_tpu_torch.formats import COO, erdos_renyi, rmat
+from outerspace_tpu_torch.convert import load_params, state_dict_from_params
+from outerspace_tpu_torch.formats import COO, BlockELL, erdos_renyi, rmat
 from outerspace_tpu_torch.ops import assert_csr_allclose, spgemm, spgemm_scipy
 from outerspace_tpu_torch.ops.gather_pipeline import plan_spgemm_gather
-from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan
+from outerspace_tpu_torch.nn.data import synthetic_mnist
+from outerspace_tpu_torch.nn.models import make_model
+from outerspace_tpu_torch.nn.sparse_infer import SparseLeNet, SparseMLP
+from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan, spmm
 from outerspace_tpu_torch.ops.spgemm import plan_tiled, spgemm_padded_tiled
 
 import torch_cases  # tests/ is on sys.path under pytest
@@ -186,3 +191,96 @@ def test_tiles_corner_2e32_on_card(cuda):
     a = COO((65536, 2), [65535, 3], [0, 1], [1.5, 2.0])
     b = COO((2, 65536), [0, 1], [65535, 7], [2.0, 1.0])
     assert_csr_allclose(spgemm(a, b, strategy="tiles", device=cuda), spgemm_scipy(a, b), rtol=RTOL, atol=ATOL)
+
+
+def random_blockell(m, k, density, seed, block=(8, 128), empty_rows=()):
+    """A random W as block-ELL (ragged rows, so masked slots) and dense."""
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((m, k)).astype(np.float32)
+    d[rng.random((m, k)) >= density] = 0.0
+    for r in empty_rows:
+        d[r] = 0.0
+    return BlockELL.from_coo(COO.from_dense(d), block_shape=block), d
+
+
+@pytest.mark.parametrize(
+    "m,k,n,density,block,tn",
+    [
+        (1000, 784, 1024, 0.01, (8, 128), 128),  # MLP1w layer 0's shapes
+        (100, 784, 77, 0.05, (8, 128), 128),  # N not a multiple of 128
+        (64, 256, 300, 0.002, (8, 128), 64),  # many masked slots and empty row blocks
+        (37, 200, 50, 0.1, (16, 8), 32),  # bn = 8, two row groups per block
+        (21, 300, 256, 0.1, (5, 128), 256),  # bm not a multiple of 8
+    ],
+)
+def test_k5_kernel_matches_plain(cuda, m, k, n, density, block, tn):
+    bm = block[0]
+    w, d = random_blockell(m, k, density, seed=m + n, block=block, empty_rows=range(bm, 2 * bm))
+    assert not w.block_mask.all()
+    dev = spmm.blockell_to_device(w, cuda)
+    x = np.random.default_rng(n).standard_normal((k, n)).astype(np.float32)
+    k_pad = -(-k // block[1]) * block[1]
+    xp = torch.zeros((k_pad, -(-n // tn) * tn), device=cuda)
+    xp[:k, :n] = torch.from_numpy(x).to(cuda)
+    before = spmm.KERNEL.launches
+    got = spmm.spmm_blockell_device(dev["meta"], dev["blocks"], xp, tn=tn)[:m, :n]
+    torch.cuda.synchronize()
+    assert spmm.KERNEL.launches == before + 1
+    want = spmm.spmm_blockell_plain(dev["meta"], dev["blocks"], xp)[:m, :n]
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-6 * scale
+    assert np.abs(got.cpu().numpy() - d.astype(np.float64) @ x).max() <= 1e-6 * scale
+    assert not got[bm:2 * bm].any()
+
+
+def test_k5_empty_w_writes_zeros(cuda):
+    w = BlockELL.from_coo(COO((64, 128), [], [], []), block_shape=(8, 128))
+    y = spmm.spmm(w, torch.ones((128, 32)), device=cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.zeros((64, 32), device=cuda))
+
+
+def test_k5_wrapper_rejects_mixed_devices_and_unsupported_shapes(cuda):
+    w, _ = random_blockell(16, 256, 0.1, seed=1)
+    dev = spmm.blockell_to_device(w, cuda)
+    x = torch.zeros((256, 128), device=cuda)
+    with pytest.raises(ValueError, match="x on cpu"):
+        spmm.spmm_blockell_device(dev["meta"], dev["blocks"], x.cpu())
+    with pytest.raises(ValueError, match="meta on cpu"):
+        spmm.spmm_blockell_device(dev["meta"].cpu(), dev["blocks"], x)
+    for tn in (48, 512):
+        with pytest.raises(ValueError, match="K5 takes tn"):
+            spmm.spmm_blockell_device(dev["meta"], dev["blocks"], torch.zeros((256, 1536), device=cuda), tn=tn)
+    before = spmm.KERNEL.launches
+    with pytest.raises(ValueError, match="bn | K_pad"):
+        spmm.spmm_blockell_device(dev["meta"], dev["blocks"], torch.zeros((200, 128), device=cuda))
+    assert spmm.KERNEL.launches == before
+
+
+def weights(name):
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "saved_weights")
+    return load_params(os.path.join(root, name))
+
+
+@pytest.mark.parametrize(
+    "model_type,path,batch,per_call",
+    [("MLP1w", "MLP1w/prune0p01_finetuned.pkl", 256, 3), ("MLP1", "MLP1/pruned10_finetuned.pkl", 33, 3),
+     ("LeNet", "LeNet/pruned_finetuned", 64, 5)],
+)
+def test_sparse_models_on_card_match_dense(cuda, model_type, path, batch, per_call):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p = weights(path)
+    x = synthetic_mnist(10 * batch, seed=1)["test"][0][:batch]
+    dense = make_model(model_type).to(cuda)
+    dense.load_state_dict(state_dict_from_params(p))
+    cls = SparseLeNet if model_type == "LeNet" else SparseMLP
+    model = cls(p, device=cuda)
+    before = spmm.KERNEL.launches
+    got = model(x)
+    torch.cuda.synchronize()
+    assert spmm.KERNEL.launches == before + per_call
+    with torch.no_grad():
+        want = dense(torch.from_numpy(x).to(cuda))[0]
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err < 1e-5, err

@@ -1,6 +1,7 @@
 """The port stands alone: with ``jax`` and the JAX package blocked from
-import, every module of ``outerspace_tpu_torch`` imports and the main
-path runs on the CPU; and no source of the port names either."""
+import, every module of ``outerspace_tpu_torch`` imports, the SpGEMM
+main path runs on the CPU and a ``SparseMLP`` serves one forward with the
+committed weights; and no source of the port names either."""
 
 import os
 import subprocess
@@ -48,6 +49,16 @@ assert plan_tiled(t.to_csc(), t.to_csr(), waste_limit=2.0, device="cpu").class_t
 for packed in (None, False):
     got = spgemm(t, t, strategy="tiles", packed=packed, device="cpu")
     assert_csr_allclose(got, spgemm_scipy(t, t), rtol=1e-5, atol=1e-6)
+# sparse-NN inference: the committed pickles load without JAX
+import numpy as np
+from outerspace_tpu_torch.convert import load_params
+from outerspace_tpu_torch.nn.data import synthetic_mnist
+from outerspace_tpu_torch.nn.sparse_infer import SparseMLP, mlp_forward_dense
+p = load_params("data/saved_weights/MLP1/pruned10_finetuned.pkl")
+xs = synthetic_mnist(80, seed=0)["test"][0]
+ref = mlp_forward_dense(p, xs)
+y = SparseMLP(p, device="cpu")(xs).numpy()
+assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max()
 leaked = [m for m in sys.modules if m in Blocker.BLOCKED or m.startswith(("jax.", "outerspace_tpu."))]
 assert not leaked, leaked
 print("isolated", len(names))
@@ -62,7 +73,7 @@ def test_port_imports_and_runs_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("isolated")
-    assert int(out.stdout.split()[1]) >= 24
+    assert int(out.stdout.split()[1]) >= 31
 
 
 def port_sources():
@@ -76,7 +87,7 @@ def port_sources():
 
 def test_port_sources_name_no_jax():
     sources = list(port_sources())
-    assert len(sources) >= 29
+    assert len(sources) >= 37
     for path in sources:
         with open(path, encoding="utf-8") as f:
             text = f.read()

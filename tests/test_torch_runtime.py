@@ -7,10 +7,10 @@ import stat
 
 import pytest
 
-from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan
+from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan, spmm
 from outerspace_tpu_torch.runtime import build
 
-KERNELS = (gexpand.KERNEL, scan.KERNEL, expand.KERNEL_PACKED, expand.KERNEL_COORDS)
+KERNELS = (gexpand.KERNEL, scan.KERNEL, expand.KERNEL_PACKED, expand.KERNEL_COORDS, spmm.KERNEL)
 
 
 def test_nvcc_flags_target_hopper_without_torch_headers():
