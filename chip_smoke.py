@@ -22,9 +22,10 @@ point on each path, checking every result exactly against scipy:
 Each path's kernel launch counts are set to 0 just before its run and
 read just after; a kernel of the path that was not launched fails the
 run. Then it holds each kernel against its plain PyTorch version on the
-card at the main path's shapes, and times the kernels, their plain
-versions, ``torch.sort``, ``torch.matmul`` of K5's densified weights and
-each pipeline's end-to-end split (CUDA events and the host clock), and
+card at the main path's shapes, and times the kernels, ``torch.sort``
+and ``torch.matmul`` of K5's densified weights (CUDA events, the
+device's time alone and with the host's launches), the plain versions
+(CUDA events), each pipeline's end-to-end split (the host clock), and
 each pipeline's and kernel's device activity (``torch.profiler``).
 
 Output: one line per phase with its seconds, a ``{"kernels": [...]}``
@@ -49,6 +50,10 @@ NN_REL = 1e-5  # NN output vs the dense model, relative to its max |y|
 K5_REL = 1e-6  # K5 vs its plain version, relative to max |y|
 WEIGHTS = Path(__file__).resolve().parent / "data" / "saved_weights"
 MLP_BATCH, LENET_BATCH, REQUESTS = 1024, 256, 4
+# device ms (profiler) of the kernels' earlier designs on an NVIDIA H100
+# 80GB HBM3 at 700 W, printed beside this run's for comparison
+K5_BEFORE_MS = {"MLP1w": "0.3551-0.3603", "LeNet": "0.1444-0.1485"}
+K2_BEFORE_MS = "0.3398-0.3462"
 
 
 def _phase(name: str, t0: float) -> None:
@@ -87,6 +92,41 @@ def _median_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _spin_cycles(torch, ms: float = 20.0) -> int:
+    """Cycles of ``torch.cuda._sleep`` that hold the stream ~``ms``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    end.synchronize()
+    return int(ms / start.elapsed_time(end) * 1_000_000)
+
+
+def _device_ms(torch, fn, spin: int, reps: int = 10) -> float:
+    """Median device time of ``fn`` by CUDA events, the host's launch cost
+    left out: a spin kernel of ``spin`` cycles holds the stream while the
+    host queues every launch of ``fn`` between the two events, so the
+    events time the device's work back to back. ``fn`` must not
+    synchronise; if the spin ends before the host has queued it all, the
+    run fails."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        fn()
+        end.record()
+        if start.query():
+            raise RuntimeError("the spin ended before the host queued every launch")
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def _split_ms(torch, plan_fn, run_fn, samples: int = 3):
     """End to end in three stages (host plan incl. staging, device
     pipeline, fetch to CSR), host clock, the median sample by total."""
@@ -105,9 +145,10 @@ def _split_ms(torch, plan_fn, run_fn, samples: int = 3):
     return sorted(splits, key=sum)[len(splits) // 2]
 
 
-# kernel name fragments (as CUPTI reports the demangled names) by kernel
-_FAMILIES = (("K1", "::gexpand_kernel"), ("K2", "::scan_kernel"),
-             ("K2", "::scan_corner_kernel"), ("K3", "::expand_kernel<true>"),
+# kernel name fragments (as CUPTI reports the demangled names) by kernel;
+# K2 is its tile pass and its carry pass
+_FAMILIES = (("K1", "::gexpand_kernel"), ("K2", "::scan_tile_kernel"),
+             ("K2 carry", "::scan_carry_kernel"), ("K3", "::expand_kernel<true>"),
              ("K4", "::expand_kernel<false>"), ("K5", "::spmm_kernel"))
 
 
@@ -139,14 +180,18 @@ def _profile(torch, fn):
     return by, busy, span
 
 
-def _profile_line(torch, label, fn) -> str:
+def _profile_line(torch, label, fn) -> dict:
+    """Prints the device activity over one call of ``fn``; returns the
+    device ms by kernel (empty when nothing was recorded)."""
     got = _profile(torch, fn)
     if got is None:
-        return f"{label} (profiler): no device activity recorded; not measured"
+        print(f"{label} (profiler): no device activity recorded; not measured")
+        return {}
     by, busy, span = got
     parts = ", ".join(f"{k} {ms:.4f} ms in {n}" for k, (ms, n) in sorted(by.items()))
-    return (f"{label} (profiler): device busy {busy:.4f} ms of a {span:.4f} ms span "
-            f"(idle {100 * (1 - busy / span):.1f}%); {parts}")
+    print(f"{label} (profiler): device busy {busy:.4f} ms of a {span:.4f} ms span "
+          f"(idle {100 * (1 - busy / span):.1f}%); {parts}")
+    return {k: ms for k, (ms, _) in by.items()}
 
 
 def _expand_bytes(np, sched, out_bytes: int) -> int:
@@ -185,16 +230,21 @@ def _k5_work(np, meta, blocks, x) -> tuple[int, int]:
     return nbytes, 2 * bm * bn * n_pad * pairs
 
 
-def _k5_real_work(np, meta, blocks, dims) -> tuple[int, int]:
-    """The work a layer needs apart from the block format's zeros: bytes
-    of the valid slots' stored blocks, the unpadded X (in_dim × columns)
-    and Y (out_dim × columns); operations 2 per weight nonzero and column."""
+def _k5_real_work(torch, meta, blocks, dims) -> tuple[int, int, int]:
+    """The work a layer's inputs need: bytes of the valid slots' stored
+    blocks, of each X row that some nonzero weight needs (once, at the
+    unpadded column count) and of the unpadded Y (out_dim × columns);
+    operations 2 per weight nonzero and column. Also the nonempty block
+    columns (valid slot, k): the list K5 walks."""
     nrb, mb, bm, bn = blocks.shape
-    in_dim, out_dim, cols = dims
+    _, out_dim, cols = dims
     valid = meta[:, 1] != 0
-    nnz = int((blocks.reshape(nrb * mb, bm, bn)[valid] != 0).sum())
-    nbytes = 4 * (int(valid.sum()) * bm * bn + (in_dim + out_dim) * cols)
-    return nbytes, 2 * nnz * cols
+    stored = blocks.reshape(nrb * mb, bm, bn)[valid] != 0
+    col_nz = stored.any(dim=1)  # [valid slots, bn]
+    x_rows = meta[valid, 0].long()[:, None] * bn + torch.arange(bn, device=meta.device)
+    needed = int(torch.unique(x_rows[col_nz]).numel())
+    nbytes = 4 * (int(valid.sum()) * bm * bn + needed * cols + out_dim * cols)
+    return nbytes, 2 * int(stored.sum()) * cols, int(col_nz.sum())
 
 
 def _dense_w(torch, meta, blocks, k_pad):
@@ -386,10 +436,13 @@ def main() -> int:
                 raise RuntimeError(f"K2 {nm} disagrees with its plain version (want exact)")
         if not torch.allclose(got[2], want[2], rtol=VAL_RTOL, atol=VAL_ATOL):
             raise RuntimeError("K2 values disagree with its plain version")
+        again = scan.merge_epilogue_scan(skey, sval, pad, n_cols=plan.n, sentinel_row=plan.m)
+        if not torch.equal(again[2].view(torch.int32), got[2].view(torch.int32)):
+            raise RuntimeError("K2 gave other values on a second launch (want bit-equal)")
         k2_err = max(k2_err, float((got[2] - want[2]).abs().max()))
     print(f"K1 == plain bit for bit on {len(plan.parts)} parts (values max |err| "
           f"{k1_err:.3e}); K2 structure and nnz exact, values max |err| {k2_err:.3e} "
-          f"(rtol {VAL_RTOL}, atol {VAL_ATOL})")
+          f"(rtol {VAL_RTOL}, atol {VAL_ATOL}), bit-equal over two launches")
 
     # K3 and K4 on every (part, class) table of the rmat14 tiled plan
     tplan = plan_tiled_parts(a_csc, b_csr, device=dev)
@@ -488,22 +541,30 @@ def main() -> int:
         return lambda: [fn(*args, tile_a=s.tile_a, sentinel_row=m) for s, args, _, m in tables]
 
     keys_raw = [gexpand.expand_gather(*args, b_win=p.b_win)[0] for args, p in k1_in]
-    k1_ms = _median_ms(torch, run_k1(gexpand.expand_gather))
-    k1_plain_ms = _median_ms(torch, run_k1(gexpand.expand_gather_plain), reps=3, warmup=1)
-    k2_ms = _median_ms(torch, run_k2(scan.merge_epilogue_scan))
-    k2_plain_ms = _median_ms(torch, run_k2(scan.merge_epilogue_plain), reps=3, warmup=1)
-    sort_ms = _median_ms(torch, lambda: [torch.sort(k) for k in keys_raw])
-    k3_ms = _median_ms(torch, run_k3(expand.expand_tiles_packed))
-    k3_plain_ms = _median_ms(torch, run_k3(expand.expand_tiles_packed_plain), reps=3, warmup=1)
-    k4_ms = _median_ms(torch, run_k4(expand.expand_tiles_coords))
-    k4_plain_ms = _median_ms(torch, run_k4(expand.expand_tiles_coords_plain), reps=3, warmup=1)
     all_k5 = [c for calls in k5_calls.values() for c in calls]
     dense_ws = [_dense_w(torch, c[0], c[1], c[2].shape[0]) for c in all_k5]
-    k5_layer_ms = [_median_ms(torch, lambda c=c: spmm.spmm_blockell_device(*c)) for c in all_k5]
-    k5_ms = _median_ms(torch, lambda: [spmm.spmm_blockell_device(*c) for c in all_k5])
+    # the kernels and the library calls by CUDA events, the device's time
+    # alone (_device_ms) and with the host's launches (_median_ms); the
+    # plain versions synchronise inside, so only the latter
+    runs = {"K1": run_k1(gexpand.expand_gather), "K2": run_k2(scan.merge_epilogue_scan),
+            "torch.sort": lambda: [torch.sort(k) for k in keys_raw],
+            "K3": run_k3(expand.expand_tiles_packed), "K4": run_k4(expand.expand_tiles_coords),
+            "K5": lambda: [spmm.spmm_blockell_device(*c) for c in all_k5],
+            "torch.matmul": lambda: [torch.matmul(w, c[2]) for w, c in zip(dense_ws, all_k5)]}
+    spin = _spin_cycles(torch)
+    dev_ms = {k: _device_ms(torch, fn, spin) for k, fn in runs.items()}
+    call_ms = {k: _median_ms(torch, fn) for k, fn in runs.items()}
+    k1_ms, k2_ms, sort_ms, k3_ms, k4_ms, k5_ms, k5_lib_ms = dev_ms.values()
+    k1_plain_ms = _median_ms(torch, run_k1(gexpand.expand_gather_plain), reps=3, warmup=1)
+    k2_plain_ms = _median_ms(torch, run_k2(scan.merge_epilogue_plain), reps=3, warmup=1)
+    k3_plain_ms = _median_ms(torch, run_k3(expand.expand_tiles_packed_plain), reps=3, warmup=1)
+    k4_plain_ms = _median_ms(torch, run_k4(expand.expand_tiles_coords_plain), reps=3, warmup=1)
     k5_plain_ms = _median_ms(torch, lambda: [spmm.spmm_blockell_plain(*c[:3]) for c in all_k5],
                              reps=3, warmup=1)
-    k5_lib_ms = _median_ms(torch, lambda: [torch.matmul(w, c[2]) for w, c in zip(dense_ws, all_k5)])
+    k5_layer_ms = [_device_ms(torch, lambda c=c: spmm.spmm_blockell_device(*c), spin)
+                   for c in all_k5]
+    print("by CUDA events with the host's launches, ms: "
+          + ", ".join(f"{k} {ms:.4f}" for k, ms in call_ms.items()))
     _phase("timing: kernels by CUDA events", t0)
 
     # bound: the larger of bytes moved (each input byte the function needs
@@ -536,33 +597,41 @@ def main() -> int:
     print(f"rmat14_ef8 tile tables: {len(tables)}, {tile_slots} slots "
           f"({tile_products} real products; {pad_task_slots} slots of padding tasks); "
           f"K3 {k3_bytes} B, K4 {k4_bytes} B to move")
+    print("device time by CUDA events, ms (plain versions: each call, host included):")
     print(f"K1 {k1_ms:.4f} ms/run (plain {k1_plain_ms:.4f}, bound {k1_bound:.4f}); "
           f"K2 {k2_ms:.4f} ms/run (plain {k2_plain_ms:.4f}, bound {k2_bound:.4f}); "
           f"torch.sort {sort_ms:.4f} ms/run")
     print(f"K3 {k3_ms:.4f} ms/run (plain {k3_plain_ms:.4f}, bound {k3_bound:.4f}); "
           f"K4 {k4_ms:.4f} ms/run (plain {k4_plain_ms:.4f}, bound {k4_bound:.4f})")
-    k5_work = [_k5_work(np, c[0], c[1], c[2]) for c in all_k5]
-    k5_bound, k5_by = _bound(sum(b for b, _ in k5_work), sum(f for _, f in k5_work))
+    # K5: the nominal work (2·bm·bn·N_pad flop per valid slot, every X row
+    # of every stored block) is no floor for a kernel that skips empty
+    # columns; its bound is the work these inputs need (_k5_real_work)
+    k5_nominal = [_k5_work(np, c[0], c[1], c[2]) for c in all_k5]
+    k5_need = [_k5_real_work(torch, c[0], c[1], d)
+               for name in k5_calls for c, d in zip(k5_calls[name], k5_real[name])]
+    k5_bound, k5_by = _bound(sum(w[0] for w in k5_need), sum(w[1] for w in k5_need))
     li = 0
     for model_name, calls in k5_calls.items():
-        work = k5_work[li:li + len(calls)]
-        fwd_bound, fwd_by = _bound(sum(b for b, _ in work), sum(f for _, f in work))
+        sl = slice(li, li + len(calls))
         layers = ", ".join(
-            f"{ms:.4f} (bound {_bound(*wk)[0]:.4f} by {_bound(*wk)[1]}, {wk[0]} B, {wk[1]} flop)"
-            for ms, wk in zip(k5_layer_ms[li:li + len(calls)], work))
-        fwd_ms = sum(k5_layer_ms[li:li + len(calls)])
-        print(f"K5 {model_name} per layer ms: {layers}; summed {fwd_ms:.4f} "
-              f"ms per forward (bound {fwd_bound:.4f} by {fwd_by})")
-        real = [_k5_real_work(np, c[0], c[1], d) for c, d in zip(calls, k5_real[model_name])]
-        real_b, real_f = sum(b for b, _ in real), sum(f for _, f in real)
-        floor, floor_by = _bound(real_b, real_f)
-        print(f"K5 {model_name} nonzero work per forward (no multiplications by stored zeros, "
-              f"no padded rows or columns): {real_f} flop, {real_b} B; floor {floor:.4f} ms by "
-              f"{floor_by}, {100 * floor / fwd_ms:.1f}% of the summed per-layer time")
+            f"{ms:.4f} ms ({nz} nonempty columns; bound {_bound(b, f)[0]:.4f} by "
+            f"{_bound(b, f)[1]}, {b} B, {f} flop; nominal {_bound(*nom)[0]:.4f})"
+            for ms, (b, f, nz), nom in zip(k5_layer_ms[sl], k5_need[sl], k5_nominal[sl]))
+        fwd_ms = sum(k5_layer_ms[sl])
+        need_b, need_f = sum(w[0] for w in k5_need[sl]), sum(w[1] for w in k5_need[sl])
+        fwd_bound, fwd_by = _bound(need_b, need_f)
+        nom_bound, nom_by = _bound(sum(w[0] for w in k5_nominal[sl]),
+                                   sum(w[1] for w in k5_nominal[sl]))
+        print(f"K5 {model_name} per layer: {layers}")
+        print(f"K5 {model_name} summed {fwd_ms:.4f} ms per forward; the work its inputs need: "
+              f"{need_f} flop, {need_b} B, bound {fwd_bound:.4f} ms by {fwd_by} "
+              f"({100 * fwd_bound / fwd_ms:.1f}% of the summed time); nominal bound "
+              f"{nom_bound:.4f} ms by {nom_by}")
         li += len(calls)
     print(f"K5 {k5_ms:.4f} ms for one MLP1w and one LeNet forward's {len(all_k5)} layers "
           f"(plain {k5_plain_ms:.4f}, torch.matmul of the densified W {k5_lib_ms:.4f}, "
-          f"bound {k5_bound:.4f} by {k5_by})")
+          f"bound {k5_bound:.4f} by {k5_by}); K5 {'below' if k5_ms < k5_lib_ms else 'NOT below'} "
+          f"torch.matmul, {k5_lib_ms / k5_ms:.2f}x")
 
     pipelines = []
     for name, plan_fn, run_fn in (
@@ -606,19 +675,30 @@ def main() -> int:
                   f"{unfold_ms:.4f} ms)")
     _phase("timing: sparse-NN end to end", t1)
     for name, pl, run_fn in pipelines:
-        print(_profile_line(torch, f"rmat14_ef8 {name} device pipeline",
-                            lambda: run_fn(pl)))
+        _profile_line(torch, f"rmat14_ef8 {name} device pipeline", lambda: run_fn(pl))
+    fwd_dev = {}
     for model_name, (model, x, _) in served.items():
         x_dev = torch.from_numpy(x).to(dev)
-        print(_profile_line(torch, f"{model_name} b{x.shape[0]} sparse forward",
-                            lambda: model(x_dev)))
+        fwd_dev[model_name] = _profile_line(
+            torch, f"{model_name} b{x.shape[0]} sparse forward", lambda: model(x_dev))
     # one trace for the four kernels (each profiler session adds time),
     # each run once at the main path's shapes; the split is by name
     kernel_runs = (run_k1(gexpand.expand_gather), run_k2(scan.merge_epilogue_scan),
                    run_k3(expand.expand_tiles_packed), run_k4(expand.expand_tiles_coords),
                    lambda: [spmm.spmm_blockell_device(*c) for c in all_k5])
-    print(_profile_line(torch, "K1, K2, K3, K4 alone, one run each; K5 one layer set",
-                        lambda: [fn() for fn in kernel_runs]))
+    alone = _profile_line(torch, "K1, K2, K3, K4 alone, one run each; K5 one layer set",
+                          lambda: [fn() for fn in kernel_runs])
+    for model_name, by in fwd_dev.items():
+        if "K5" in by:
+            print(f"K5 device {by['K5']:.4f} ms per {model_name} forward (profiler; the "
+                  f"row-tile design it replaced: {K5_BEFORE_MS[model_name]} ms on an NVIDIA "
+                  f"H100 80GB HBM3 at 700 W)")
+    if "K2" in alone:
+        k2_dev = alone["K2"] + alone.get("K2 carry", 0.0)
+        print(f"K2 device {k2_dev:.4f} ms per rmat14_ef8 run (profiler; tile pass "
+              f"{alone['K2']:.4f}, carry pass {alone.get('K2 carry', 0.0):.4f}): "
+              f"{100 * k2_bound / k2_dev:.1f}% of its {k2_bound:.4f} ms bound (the per-slot "
+              f"design it replaced: {K2_BEFORE_MS} ms on the same card model)")
     _phase("timing", t0)
     _phase("total (torch import to here)", t_start)
 

@@ -25,8 +25,14 @@ _I32_MAX = 2**31 - 1
 KERNEL = CudaKernel(
     "scan",
     "scan_launch",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
+
+# csrc/scan.cu's tiles: slots per tile, and the int32 fields of each
+# tile's record in the scratch the wrapper allocates (one array per
+# field, the tile count rounded up to 4)
+TILE = 1024
+_REC_FIELDS = 6
 
 
 def _check(key, vals, n_cols, sentinel_row):
@@ -53,8 +59,9 @@ def merge_epilogue_scan(
     """Returns (rows int32, cols int32, vals float32, valid bool,
     nnz int32 scalar), each stream of length N.
 
-    CUDA tensors launch ``csrc/scan.cu``; CPU tensors run
-    :func:`merge_epilogue_plain`; any other device raises."""
+    CUDA tensors launch ``csrc/scan.cu`` (a pass over tiles of
+    :data:`TILE` slots, then a carry pass over the tiles' records); CPU
+    tensors run :func:`merge_epilogue_plain`; any other device raises."""
     _check(key, vals, n_cols, sentinel_row)
     dev = key.device
     if dev.type == "cpu":
@@ -69,11 +76,12 @@ def merge_epilogue_scan(
     out_vals = torch.empty(n, dtype=torch.float32, device=dev)
     valid = torch.empty(n, dtype=torch.bool, device=dev)
     nnz = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty(4, dtype=torch.int32, device=dev)
+    stride = -(-n // (4 * TILE)) * 4
+    scratch = torch.empty(max(1, stride * _REC_FIELDS), dtype=torch.int32, device=dev)
     KERNEL.launch(
         tensor_ptr(key), tensor_ptr(vals), tensor_ptr(rows), tensor_ptr(cols),
         tensor_ptr(out_vals), tensor_ptr(valid), tensor_ptr(nnz),
-        tensor_ptr(scratch), n, n_cols, sentinel_row, int(pad_count),
+        tensor_ptr(scratch), scratch.numel(), n, n_cols, sentinel_row, int(pad_count),
         *device_args(dev),
     )
     return rows, cols, out_vals, valid, nnz

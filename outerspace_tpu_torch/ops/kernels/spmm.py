@@ -27,8 +27,9 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 )
 
-# what csrc/spmm.cu takes: tn threads per block (whole warps), row blocks
-# and 8-row groups of bm on the grid's y and z axes
+# what csrc/spmm.cu takes: N_pad a multiple of tn, tn whole warps (the
+# kernel tiles columns by its own 256 and masks the edge), row blocks and
+# 8-row groups of bm on the grid's y and z axes
 _MAX_TN = 256
 _MAX_GRID_YZ = 65535
 
@@ -94,8 +95,9 @@ def spmm_blockell_device(
     """Y = W @ X with W in block-ELL; returns f32[nrb·bm, N_pad].
 
     CUDA tensors launch ``csrc/spmm.cu`` (one block per (row block,
-    ``tn`` column tile, 8-row group of ``bm``); ``tn`` a multiple of 32
-    up to 256, else it raises); CPU tensors run
+    256 columns, 8-row group of ``bm``), which reads only the X rows a
+    nonzero weight needs, so a NaN in another row does not reach Y;
+    ``tn`` a multiple of 32 up to 256, else it raises); CPU tensors run
     :func:`spmm_blockell_plain`; any other device raises. Every block
     column in ``meta`` must index a ``bn``-row block of X."""
     _check(meta, blocks, x, tn)

@@ -93,6 +93,113 @@ def test_spgemm_on_card_matches_scipy(cuda, make):
     assert_csr_allclose(spgemm(a, b, device=cuda), spgemm_scipy(a, b), rtol=RTOL, atol=ATOL)
 
 
+T = scan.TILE
+
+
+def k2_stream(n, runs, pad, seed, n_cols=65536):
+    """A sorted biased-key stream of ``n`` slots: runs of the given
+    lengths (in order, distinct ascending keys) and ``pad`` sentinels.
+    Values are multiples of 1/8 below 8 in magnitude, so every run sum
+    is exact in float32 in any order: kernel and plain must agree to
+    the bit."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(runs, np.int64)
+    assert lengths.sum() + pad == n
+    coords = np.sort(rng.choice(2**31, size=len(lengths), replace=False)).astype(np.int64)
+    key = np.concatenate([np.repeat(coords - 2**31, lengths).astype(np.int32), np.full(pad, I32_MAX, np.int32)])
+    return key, (rng.integers(-63, 64, size=n) / 8).astype(np.float32), n_cols
+
+
+def runs_to_fill(n, fixed, seed):
+    """``fixed`` runs, then short runs (1-5) up to ``n`` slots."""
+    rng = np.random.default_rng(seed)
+    runs = list(fixed)
+    while sum(runs) < n:
+        runs.append(int(min(rng.integers(1, 6), n - sum(runs))))
+    return runs
+
+
+def k2_matches_plain(key, vals, pad_count, n_cols, sentinel_row=65536):
+    kt, vt = (torch.as_tensor(a).to("cuda") if isinstance(a, np.ndarray) else a for a in (key, vals))
+    before = scan.KERNEL.launches
+    got = scan.merge_epilogue_scan(kt, vt, pad_count, n_cols=n_cols, sentinel_row=sentinel_row)
+    want = scan.merge_epilogue_plain(kt, vt, pad_count, n_cols=n_cols, sentinel_row=sentinel_row)
+    torch.cuda.synchronize()
+    assert scan.KERNEL.launches == before + 1
+    for i in (0, 1, 2, 3, 4):
+        assert torch.equal(got[i], want[i]), i
+    return got
+
+
+def test_k2_run_longer_than_three_tiles(cuda):
+    n = 5 * T + 77
+    key, vals, n_cols = k2_stream(n, runs_to_fill(n - 300, [T // 2, 3 * T + 100], seed=1), 300, seed=1)
+    got = k2_matches_plain(key, vals, 300, n_cols)
+    end = T // 2 + 3 * T + 100 - 1
+    assert bool(got[3][end]) and not got[3][T // 2:end].any()
+    assert float(got[2][end]) == vals[T // 2:end + 1].astype(np.float64).sum()
+
+
+@pytest.mark.parametrize("shift", [-1, 0, 1])
+def test_k2_runs_ending_at_tile_boundaries(cuda, shift):
+    # a run ends at slot b·T + shift − 1 for b = 1, 3, 5: one before, at
+    # and one after a tile boundary; the run ending near 5·T is T + 500
+    # slots long and crosses 4·T
+    n = 6 * T + 9
+    runs = []
+    for b in (1, 3, 5):
+        target = b * T + shift - sum(runs)
+        runs += {1: runs_to_fill(target, [], seed=b), 3: [target - 40, 40], 5: [target - T - 500, T + 500]}[b]
+    runs = runs_to_fill(n - 9, runs, seed=7)
+    key, vals, n_cols = k2_stream(n, runs, 9, seed=2 + shift)
+    got = k2_matches_plain(key, vals, 9, n_cols)
+    for b in (1, 3, 5):
+        assert bool(got[3][b * T + shift - 1])
+
+
+def test_k2_sentinel_pad_longer_than_a_tile(cuda):
+    n = 3 * T + 11
+    pad = T + 500
+    key, vals, n_cols = k2_stream(n, runs_to_fill(n - pad, [], seed=3), pad, seed=3)
+    got = k2_matches_plain(key, vals, pad, n_cols)
+    assert not got[3][n - pad:].any()
+
+
+@pytest.mark.parametrize("n", [1, T - 1, T, T + 1, 3 * T + 5])
+def test_k2_lengths_around_the_tile(cuda, n):
+    pad = min(n // 3, 50)
+    key, vals, n_cols = k2_stream(n, runs_to_fill(n - pad, [], seed=n), pad, seed=n)
+    k2_matches_plain(key, vals, pad, n_cols)
+
+
+def test_k2_unaligned_view_takes_the_scalar_path(cuda):
+    n = 2 * T + 333
+    key, vals, n_cols = k2_stream(n + 1, runs_to_fill(n + 1 - 40, [700], seed=4), 40, seed=4)
+    kt, vt = torch.from_numpy(key).to(cuda)[1:], torch.from_numpy(vals).to(cuda)[1:]
+    assert kt.is_contiguous() and kt.data_ptr() % 16 and vt.data_ptr() % 16
+    k2_matches_plain(kt, vt, 40, n_cols)
+
+
+@pytest.mark.parametrize("pad_count", [T + 2, T + 3, T + 4])
+def test_k2_corner_2e32_across_tiles(cuda, pad_count):
+    # T + 3 sentinel slots (padding plus real corner products, at
+    # m·n = 2³²): the terminal slot is real iff T + 3 > pad_count
+    n = 3 * T
+    key, vals, n_cols = k2_stream(n, runs_to_fill(n - T - 3, [], seed=5), T + 3, seed=5)
+    got = k2_matches_plain(key, vals, pad_count, n_cols)
+    assert bool(got[3][-1]) == (T + 3 > pad_count)
+
+
+def test_k2_two_launches_bit_equal(cuda):
+    n = 4 * T + 123
+    key, vals, n_cols = k2_stream(n, runs_to_fill(n - 64, [2 * T + 5, 900], seed=6), 64, seed=6)
+    kt, vt = torch.from_numpy(key).to(cuda), torch.from_numpy(vals).to(cuda)
+    a = scan.merge_epilogue_scan(kt, vt, 64, n_cols=n_cols, sentinel_row=65536)
+    b = scan.merge_epilogue_scan(kt, vt, 64, n_cols=n_cols, sentinel_row=65536)
+    torch.cuda.synchronize()
+    assert torch.equal(a[2].view(torch.int32), b[2].view(torch.int32))
+
+
 def test_wrappers_reject_mixed_devices(cuda):
     key = torch.zeros(8, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
@@ -231,6 +338,92 @@ def test_k5_kernel_matches_plain(cuda, m, k, n, density, block, tn):
     assert float((got - want).abs().max()) <= 1e-6 * scale
     assert np.abs(got.cpu().numpy() - d.astype(np.float64) @ x).max() <= 1e-6 * scale
     assert not got[bm:2 * bm].any()
+
+
+def k5_kernel_and_plain(w, x, tn):
+    """K5 (counted) and its plain version on a staged W and a padded X."""
+    dev = spmm.blockell_to_device(w, x.device)
+    before = spmm.KERNEL.launches
+    got = spmm.spmm_blockell_device(dev["meta"], dev["blocks"], x, tn=tn)
+    want = spmm.spmm_blockell_plain(dev["meta"], dev["blocks"], x)
+    torch.cuda.synchronize()
+    assert spmm.KERNEL.launches == before + 1
+    return got, want, dev
+
+
+def pad_x(x, rows, tn, cuda, fill=0.0):
+    xp = torch.full((rows, -(-x.shape[1] // tn) * tn), fill, device=cuda)
+    xp[: x.shape[0], : x.shape[1]] = torch.from_numpy(x).to(cuda)
+    return xp
+
+
+@pytest.mark.parametrize("tn", [32, 128])
+def test_k5_never_reads_x_rows_no_weight_needs(cuda, tn):
+    # X rows whose weight column is empty (or holds only stored zeros),
+    # the padding rows included, are NaN: K5 gives exactly what it gives
+    # with them zeroed, and that equals plain on the zeroed X. N_pad (288
+    # or 384) is a multiple of 32 but not of the kernel's 256 columns.
+    rng = np.random.default_rng(tn)
+    m, k, n = 40, 600, 288
+    d = rng.standard_normal((m, k)).astype(np.float32)
+    d[rng.random((m, k)) >= 0.01] = 0.0
+    empty = np.flatnonzero(~d.any(axis=0))
+    r, c = np.nonzero(d)
+    zr, zc = np.array([1, 9, 33]), empty[[0, len(empty) // 2, -1]]
+    w = BlockELL.from_coo(COO((m, k), np.r_[r, zr], np.r_[c, zc], np.r_[d[r, c], np.zeros(3, np.float32)]),
+                          block_shape=(8, 128))
+    x = rng.standard_normal((k, n)).astype(np.float32)
+    k_pad = 640
+    unread = np.r_[empty, np.arange(k, k_pad)]
+    x_zero = pad_x(x, k_pad, tn, cuda)
+    x_zero[torch.from_numpy(unread).to(cuda)] = 0.0
+    x_nan = x_zero.clone()
+    x_nan[torch.from_numpy(unread).to(cuda)] = float("nan")
+    got_nan, plain_nan, _ = k5_kernel_and_plain(w, x_nan, tn)
+    got, want, _ = k5_kernel_and_plain(w, x_zero, tn)
+    assert plain_nan.isnan().any()  # 0 · NaN reaches the plain sums
+    assert torch.isfinite(got_nan).all()
+    assert torch.equal(got_nan, got)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-6 * scale
+    assert np.abs(got[:m, :n].cpu().numpy() - d.astype(np.float64) @ x).max() <= 1e-6 * scale
+
+
+def test_k5_dense_block_and_stored_zero_blocks(cuda):
+    # row block 0: a stored all-zero block, then a block with all 128
+    # columns nonempty; row block 1: sparse; row block 2: only a stored
+    # all-zero block. N = 96: one column tile, mostly masked.
+    rng = np.random.default_rng(3)
+    m, k, n = 24, 384, 96
+    d = np.zeros((m, k), np.float32)
+    d[0:8, 128:256] = rng.uniform(0.5, 1.5, size=(8, 128)) * rng.choice([-1, 1], size=(8, 128))
+    sparse = rng.standard_normal((8, k)).astype(np.float32)
+    d[8:16] = np.where(rng.random((8, k)) < 0.05, sparse, 0.0)
+    r, c = np.nonzero(d)
+    zr, zc = (a.reshape(-1) for a in np.meshgrid(np.r_[0:8, 16:24], np.r_[0:128], indexing="ij"))
+    zc = zc + np.where(zr < 8, 0, 256)
+    w = BlockELL.from_coo(COO((m, k), np.r_[r, zr], np.r_[c, zc], np.r_[d[r, c], np.zeros(zr.size, np.float32)]),
+                          block_shape=(8, 128))
+    assert w.block_mask[0].sum() == 2 and w.block_mask[2].sum() == 1
+    x = rng.standard_normal((k, n)).astype(np.float32)
+    got, want, _ = k5_kernel_and_plain(w, pad_x(x, k, 32, cuda), 32)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-6 * scale
+    assert np.abs(got.cpu().numpy() - d.astype(np.float64) @ x).max() <= 1e-6 * scale
+    assert not got[16:24].any()
+
+
+def test_k5_unaligned_x_takes_the_scalar_path(cuda):
+    w, d = random_blockell(100, 300, 0.05, seed=8)
+    x = np.random.default_rng(8).standard_normal((300, 64)).astype(np.float32)
+    flat = torch.zeros(384 * 64 + 1, device=cuda)
+    xp = flat[1:].view(384, 64)
+    xp[:300] = torch.from_numpy(x).to(cuda)
+    assert xp.is_contiguous() and xp.data_ptr() % 8
+    got, want, _ = k5_kernel_and_plain(w, xp, 32)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-6 * scale
+    assert np.abs(got[:100].cpu().numpy() - d.astype(np.float64) @ x).max() <= 1e-6 * scale
 
 
 def test_k5_empty_w_writes_zeros(cuda):

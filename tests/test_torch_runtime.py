@@ -3,6 +3,7 @@ builds and their failure reports — checked on the CPU with a stand-in
 compiler, since nvcc runs only where the card is."""
 
 import os
+import re
 import stat
 
 import pytest
@@ -83,3 +84,10 @@ def test_kernels_load_lazily_and_count_launches():
         assert isinstance(kernel, build.CudaKernel)
         assert kernel._fn is None  # nothing built or loaded at import
         assert kernel.launches == 0
+
+
+def test_scan_wrapper_sizes_match_the_kernel():
+    # the wrapper allocates K2's tile records for csrc/scan.cu's tiles
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", (build.CSRC / "scan.cu").read_text()))
+    assert scan.TILE == int(const["kThreads"]) * int(const["kPer"])
+    assert scan._REC_FIELDS == int(const["kRecFields"])

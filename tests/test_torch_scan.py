@@ -126,6 +126,50 @@ def test_k2_plain_run_spanning_chunks():
     assert_epilogue_equal(got, exp)
 
 
+def runs_stream(n, fixed, pad, seed):
+    """A sorted stream at m = n_cols = 65536 (m·n = 2³²): runs of the
+    ``fixed`` lengths, short runs (1-5) up to n − pad slots, then ``pad``
+    sentinel slots. Values
+    are multiples of 1/8 below 8, so every sum is exact in float32."""
+    rng = np.random.default_rng(seed)
+    runs = list(fixed)
+    while sum(runs) < n - pad:
+        runs.append(int(min(rng.integers(1, 6), n - pad - sum(runs))))
+    coords = np.sort(rng.choice(2**32 - 1, size=len(runs), replace=False)).astype(np.int64)
+    key = np.concatenate([np.repeat(coords - 2**31, runs).astype(np.int32),
+                          np.full(pad, I32_MAX, np.int32)])
+    return key, (rng.integers(-63, 64, size=n) / 8).astype(np.float32)
+
+
+LONG_CASES = {
+    # one run of 6,000 slots (slots 3,000-8,999) across two 4,096-slot
+    # boundaries
+    "run_6000": dict(n=5 * 4096, fixed=[1] * 3000 + [6000], pad=100, pad_count=100),
+    # runs of 900-3,000 slots, each across a 4,096-slot boundary
+    "runs_across_4096": dict(n=5 * 4096, fixed=[3000, 1500, 2500, 900, 2000, 3000, 1200, 2900, 900],
+                             pad=37, pad_count=37),
+    # 6,000 sentinel slots, 3 of them real corner products (pad_count 5,997)
+    "pad_6000": dict(n=3 * 4096, fixed=[], pad=6000, pad_count=5997),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+def test_k2_plain_matches_pallas_past_the_kernel_tile(case):
+    # runs and padding longer than 4,096 slots (four of the CUDA kernel's
+    # 1,024-slot tiles), and runs across 4,096-slot boundaries, which are
+    # tile boundaries there and the Pallas kernel's chunk boundaries here
+    # (n = 3·4096 or 5·4096 runs it in 4,096-slot chunks)
+    c = LONG_CASES[case]
+    key, vals = runs_stream(c["n"], c["fixed"], c["pad"], seed=c["n"] + c["pad"])
+    got = merge_epilogue_scan(torch.from_numpy(key), torch.from_numpy(vals), c["pad_count"],
+                              n_cols=65536, sentinel_row=65536)
+    exp = j_scan(jnp.asarray(key), jnp.asarray(vals), jnp.int32(c["pad_count"]),
+                 n_cols=65536, sentinel_row=65536, max_run=None, interpret=True)
+    assert_epilogue_equal(got, exp)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(exp[2]))  # exact sums
+    assert bool(got[3][-1]) == (c["pad"] > c["pad_count"])
+
+
 @pytest.mark.parametrize("n,pad", [(1, 0), (1, 1), (999, 17), (3000, 0), (5001, 2000)])
 def test_k2_plain_any_length(n, pad):
     # The port takes streams of any length (the Pallas kernel needs a

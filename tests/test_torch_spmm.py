@@ -44,6 +44,26 @@ def few_blocks():
             d.astype(np.float64))
 
 
+def empty_columns_and_zero_blocks():
+    """Blocks whose columns are mostly empty, a block with all 128
+    columns nonempty, and two stored blocks of explicit zeros (one
+    beside the dense block, one alone in its row block)."""
+    m, k = 24, 384
+    rng = np.random.default_rng(12)
+    d = np.zeros((m, k), dtype=np.float32)
+    cols = rng.choice(k, size=12, replace=False)
+    d[8:16, cols] = rng.standard_normal((8, 12))
+    d[0:8, 128:256] = rng.standard_normal((8, 128))
+    r, c = np.nonzero(d)
+    zr, zc = (a.reshape(-1) for a in np.meshgrid(np.r_[0:8, 16:24], np.arange(128), indexing="ij"))
+    zc = zc + np.where(zr < 8, 0, 256)
+    rows, cols_, vals = np.r_[r, zr], np.r_[c, zc], np.r_[d[r, c], np.zeros(zr.size, np.float32)]
+    w = BlockELL.from_coo(COO((m, k), rows, cols_, vals), block_shape=(8, 128))
+    assert w.block_mask[0].sum() == 2 and w.block_mask[2].sum() == 1
+    return (w, JBlockELL.from_coo(JCOO((m, k), rows, cols_, vals), block_shape=(8, 128)),
+            d.astype(np.float64))
+
+
 def assert_close(got, want, scale):
     err = float(np.max(np.abs(np.asarray(got, np.float64) - want), initial=0.0))
     assert err <= REL * max(scale, 1e-30), (err, scale)
@@ -55,6 +75,7 @@ CASES = {
     "few_blocks": lambda: (*few_blocks(), 64),
     "unaligned_n77": lambda: (*sparse_w(40, 256, 0.08, seed=4), 77),
     "dense_1pct_wide": lambda: (*sparse_w(200, 1000, 0.01, seed=5), 130),
+    "empty_cols_zero_blocks": lambda: (*empty_columns_and_zero_blocks(), 96),
 }
 
 
