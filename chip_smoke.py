@@ -22,7 +22,8 @@ point on each path, checking every result exactly against scipy:
 Each path's kernel launch counts are set to 0 just before its run and
 read just after; a kernel of the path that was not launched fails the
 run. Then it holds each kernel against its plain PyTorch version on the
-card at the main path's shapes, and times the kernels, ``torch.sort``
+card at the main path's shapes (K1 on every gather part and tiled
+residue of both operands), and times the kernels, ``torch.sort``
 and ``torch.matmul`` of K5's densified weights (CUDA events, the
 device's time alone and with the host's launches), the plain versions
 (CUDA events), each pipeline's end-to-end split (the host clock), and
@@ -54,6 +55,8 @@ MLP_BATCH, LENET_BATCH, REQUESTS = 1024, 256, 4
 # 80GB HBM3 at 700 W, printed beside this run's for comparison
 K5_BEFORE_MS = {"MLP1w": "0.3551-0.3603", "LeNet": "0.1444-0.1485"}
 K2_BEFORE_MS = "0.3398-0.3462"
+K1_BEFORE_MS = {"gather": "0.1644 device-only events, 0.1570 profiler",
+                "tiles": "0.1172 profiler"}
 
 
 def _phase(name: str, t0: float) -> None:
@@ -210,6 +213,16 @@ def _expand_bytes(np, sched, out_bytes: int) -> int:
     return 16 * sched.ntasks_padded + 8 * (a_elems + b_lanes) + out_bytes * (
         sched.padded_heavy
     )
+
+
+def _k1_bytes(groups: int, nab8: int, nbb8: int, slots: int) -> int:
+    """Bytes K1 must move for one call: per group the base pair, the
+    search depth, table lanes 0-3 and 6 of each of its 8 subtiles and
+    lane 5 (n_cols) of one; the call's own A and B blocks (not the zero
+    blocks that pad parts to one shape, which the clamped reads never
+    reach); 8 B per output slot."""
+    return (groups * (2 * 4 + 4 + 8 * 5 * 4 + 4) + nab8 * 8 * 4 * 128 * 4
+            + nbb8 * 8 * 2 * 128 * 4 + slots * 8)
 
 
 def _rel_err(got, want) -> float:
@@ -458,6 +471,40 @@ def main() -> int:
         for sched, d in tp.class_tables():
             args = tuple(d[k] for k in ("tasks", "a_rows_t", "a_vals_t", "b_cols_blk", "b_vals_blk"))
             tables.append((sched, args, tp.n, tp.m))
+    # K1 on the other streams the main paths ran: er100k's gather parts
+    # and the tiled plans' residues (rmat14_ef8 and er100k)
+    def residues(tp_plan):
+        parts = tp_plan.parts if isinstance(tp_plan, TiledPartsPlan) else [(0, 0, tp_plan)]
+        return [((g["bases"], g["table"], g["a_pack"], g["b_pack"], g["group_bits"]),
+                 tp.gather_b_win)
+                for _, _, tp in parts if tp.gather_ngroups
+                for g in (tp.device_args["gather"],)]
+
+    a2_csc, a2_csr = a2.to_csc(), a2.to_csr()
+    tplan2 = plan_tiled_parts(a2_csc, a2_csr, device=dev)
+    k1_tiles_in = residues(tplan)
+    k1_other = {"er100k gather": [((d["bases"], d["table"], d["a_pack"], d["b_pack"],
+                                    d["group_bits"]), p.b_win)
+                                  for p in plan_spgemm_gather(a2_csc, a2_csr, device=dev).parts
+                                  for d in (p.dev,)],
+                "rmat14_ef8 tiles residue": k1_tiles_in,
+                "er100k tiles residue": residues(tplan2)}
+    for label, calls in k1_other.items():
+        if not calls:
+            raise RuntimeError(f"{label}: no K1 call to check")
+        for args, b_win in calls:
+            key, val = gexpand.expand_gather(*args, b_win=b_win)
+            key_p, val_p = gexpand.expand_gather_plain(*args, b_win=b_win)
+            torch.cuda.synchronize()
+            if not (torch.equal(key, key_p)
+                    and torch.equal(val.view(torch.int32), val_p.view(torch.int32))):
+                raise RuntimeError(f"K1 disagrees with its plain version on {label} (want "
+                                   f"bit-equal): {int((key != key_p).sum())} keys differ")
+            k1_err = max(k1_err, float((val - val_p).abs().max()))
+    print("K1 == plain bit for bit on " + ", ".join(
+        f"{label} ({len(calls)} calls)" for label, calls in k1_other.items()))
+    del tplan2
+
     k3_err = k4_err = 0.0
     for sched, args, n_cols, sentinel in tables:
         ta = sched.tile_a
@@ -555,6 +602,9 @@ def main() -> int:
     dev_ms = {k: _device_ms(torch, fn, spin) for k, fn in runs.items()}
     call_ms = {k: _median_ms(torch, fn) for k, fn in runs.items()}
     k1_ms, k2_ms, sort_ms, k3_ms, k4_ms, k5_ms, k5_lib_ms = dev_ms.values()
+    run_k1_tiles = lambda: [gexpand.expand_gather(*args, b_win=b) for args, b in k1_tiles_in]
+    k1_tiles_ms = _device_ms(torch, run_k1_tiles, spin)
+    call_ms["K1 tiles residue"] = _median_ms(torch, run_k1_tiles)
     k1_plain_ms = _median_ms(torch, run_k1(gexpand.expand_gather_plain), reps=3, warmup=1)
     k2_plain_ms = _median_ms(torch, run_k2(scan.merge_epilogue_plain), reps=3, warmup=1)
     k3_plain_ms = _median_ms(torch, run_k3(expand.expand_tiles_packed_plain), reps=3, warmup=1)
@@ -570,22 +620,19 @@ def main() -> int:
     # bound: the larger of bytes moved (each input byte the function needs
     # read once, each output written once) over the HBM rate and float32
     # operations (K1, K3, K4: one multiply per real product; K2: one add
-    # per real slot) over the peak. K1 needs, per group, the base pair, the
-    # search depth, table lanes 0-3 and 6 of each subtile and lane 5 (n_cols) of
-    # one; the part's own A and B blocks (not the zero blocks that pad the
-    # parts to one shape, which the clamped reads never reach); and writes
-    # 8 B per slot. K3 and K4: see _expand_bytes.
-    k1_bytes = 0
-    for (args, p), k in zip(k1_in, keys_raw):
-        groups = args[1].shape[0]
-        k1_bytes += groups * (2 * 4 + 4 + GROUP_SUBS * 5 * 4 + 4)
-        k1_bytes += p.nab8 * 8 * 4 * 128 * 4 + p.nbb8 * 8 * 2 * 128 * 4
-        k1_bytes += k.numel() * 8
+    # per real slot) over the peak. K1: see _k1_bytes (the tiles residue's
+    # packs are its own, unpadded); K3 and K4: see _expand_bytes.
+    k1_bytes = sum(_k1_bytes(args[1].shape[0], p.nab8, p.nbb8, k.numel())
+                   for (args, p), k in zip(k1_in, keys_raw))
+    k1_tiles_bytes = sum(_k1_bytes(args[1].shape[0], args[2].shape[0], args[3].shape[0],
+                                   args[1].shape[0] * GROUP_SUBS * 1024)
+                         for args, _ in k1_tiles_in)
     k2_bytes = sum(k.numel() * (4 + 4 + 4 + 4 + 4 + 1) + 4 for k, _, _ in k2_in)
     tile_products = sum(s.heavy_p for s, _, _, _ in tables)
     k3_bytes = sum(_expand_bytes(np, s, 8) for s, _, _, _ in tables)
     k4_bytes = sum(_expand_bytes(np, s, 12) for s, _, _, _ in tables)
     k1_bound, k1_by = _bound(k1_bytes, plan.flops)
+    k1_tiles_bound = _bound(k1_tiles_bytes, 0)[0]
     k2_bound, k2_by = _bound(k2_bytes, plan.flops)
     k3_bound, k3_by = _bound(k3_bytes, tile_products)
     k4_bound, k4_by = _bound(k4_bytes, tile_products)
@@ -674,8 +721,9 @@ def main() -> int:
                   f"{100 * i2c_ms / fwd_ms:.1f}% of the forward (the same rows by F.unfold "
                   f"{unfold_ms:.4f} ms)")
     _phase("timing: sparse-NN end to end", t1)
-    for name, pl, run_fn in pipelines:
-        _profile_line(torch, f"rmat14_ef8 {name} device pipeline", lambda: run_fn(pl))
+    pipe_dev = {name: _profile_line(torch, f"rmat14_ef8 {name} device pipeline",
+                                    lambda: run_fn(pl))
+                for name, pl, run_fn in pipelines}
     fwd_dev = {}
     for model_name, (model, x, _) in served.items():
         x_dev = torch.from_numpy(x).to(dev)
@@ -693,6 +741,20 @@ def main() -> int:
             print(f"K5 device {by['K5']:.4f} ms per {model_name} forward (profiler; the "
                   f"row-tile design it replaced: {K5_BEFORE_MS[model_name]} ms on an NVIDIA "
                   f"H100 80GB HBM3 at 700 W)")
+
+    def share(bound, ms):
+        return f"{100 * bound / ms:.1f}%" if ms else "not measured"
+
+    k1_prof = {"gather": alone.get("K1"), "tiles": pipe_dev["tiles"].get("K1")}
+    for path, ev_ms, bound, prof_src in (
+            ("gather", k1_ms, k1_bound, "K1 alone"),
+            ("tiles", k1_tiles_ms, k1_tiles_bound, "the tiles pipeline's trace")):
+        prof = k1_prof[path]
+        prof_txt = f"{prof:.4f} ms profiler ({prof_src})" if prof else "profiler not measured"
+        print(f"K1 device per rmat14_ef8 run, {path}{' residue' if path == 'tiles' else ''}: "
+              f"{ev_ms:.4f} ms device-only events, {prof_txt}; {share(bound, ev_ms)} (events) / "
+              f"{share(bound, prof)} (profiler) of its {bound:.4f} ms bound (before redesign: "
+              f"{K1_BEFORE_MS[path]} on an NVIDIA H100 80GB HBM3 at 700 W)")
     if "K2" in alone:
         k2_dev = alone["K2"] + alone.get("K2 carry", 0.0)
         print(f"K2 device {k2_dev:.4f} ms per rmat14_ef8 run (profiler; tile pass "

@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Time variants of K2 (``csrc/scan.cu``) and K5 (``csrc/spmm.cu``) on one
-NVIDIA card, at the shapes ``chip_smoke.py`` drives: the five sorted
-streams of rmat14_ef8 A² on the gather path (K2) and the eight layers of
-one MLP1w b1024 and one LeNet b256 forward with the committed weights
-(K5). Run from the repository root:
+"""Time variants of K1 (``csrc/gexpand.cu``), K2 (``csrc/scan.cu``) and K5
+(``csrc/spmm.cu``) on one NVIDIA card, at the shapes ``chip_smoke.py``
+drives: the five gather parts of rmat14_ef8 A² (K1) and their sorted
+streams (K2), and the eight layers of one MLP1w b1024 and one LeNet b256
+forward with the committed weights (K5). Run from the repository root:
 
-    python3 kernel_variants.py
+    python3 kernel_variants.py [K1] [K2] [K5] [--parent DIR]
 
 Each variant is the kernel's source with some of its constants (or one
 line) replaced, built with the port's ``nvcc`` flags into
-``build/variants/``. A variant that computes the same function is held
-against the plain PyTorch version; one marked "timing only" does not.
-It prints each variant's device ms (``torch.profiler``, the sum of its
-kernels' durations, mean of 5 runs) and the card's name and power limit.
+``build/variants/``; ``--parent DIR`` adds the K1 source of the checkout
+at DIR (another tree, e.g. the parent commit unpacked by ``git
+archive``). A variant that computes the same function is held against
+the plain PyTorch version, K1's bit for bit; one marked "timing only"
+is not, or computes it only on these inputs.
+It prints each variant's device ms and the card's name and power limit:
+for K1 by CUDA events around the five launches with the host's launch
+cost left out (``chip_smoke._device_ms``, median of 10; the gaps between
+the launches count), for K2 and K5 by ``torch.profiler`` (the sum of
+the kernels' durations, mean of 5 runs).
 """
 
 from __future__ import annotations
@@ -20,10 +26,71 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
+from pathlib import Path
 
 import chip_smoke as smoke
 
-# K2: (name, replacements, slots per tile, computes the kernel's function)
+
+def _threads(n):
+    return [("constexpr int kThreads = 128;", f"constexpr int kThreads = {n};")]
+
+
+# every slot searched, the block-wide check still run
+_SEARCH_ALL = [("slots<true, true>(", "slots<true, false>(")]
+# slot i of thread t at t + i * kThreads, one 4-byte store per slot
+_SCALAR_STORES = [
+    ("return (i >> 2) * 4 * kThreads + threadIdx.x * 4 + (i & 3);",
+     "return threadIdx.x + i * kThreads;"),
+    ('static_assert(kPer % 4 == 0, "16-byte stores need runs of 4 slots");', ""),
+    ("""  for (int i = 0; i < kPer; i += 4) {
+    const size_t o = out0 + slot_of(i);
+    *reinterpret_cast<int4*>(keys + o) = make_int4(key[i], key[i + 1], key[i + 2], key[i + 3]);
+    *reinterpret_cast<float4*>(vals + o) =
+        make_float4(val[i], val[i + 1], val[i + 2], val[i + 3]);
+  }""", """  for (int i = 0; i < kPer; ++i) {
+    keys[out0 + slot_of(i)] = key[i];
+    vals[out0 + slot_of(i)] = val[i];
+  }"""),
+]
+_K1_SLOTS = """    if (in_win) {
+      expand_slots<true>(s, p0, plen, start, steps, key, val);
+    } else {
+      expand_slots<false>(s, p0, plen, start, steps, key, val);
+    }"""
+
+# K1: (name, replacements in csrc/gexpand.cu, computes the kernel's
+# function: held bit for bit to plain on the gather parts)
+K1_VARIANTS = (
+    ("K1 as built: windows in shared memory, 128 threads x 2 runs of 4 consecutive slots, "
+     "each run's first slot searched and the rest walked, 16-byte stores", [], True),
+    ("K1 256 threads x 1 run of 4 slots", _threads(256), True),
+    ("K1 64 threads x 4 runs of 4 slots", _threads(64), True),
+    ("K1 128 threads x 8 consecutive slots, one search per thread (stores 32 B apart)",
+     [("return (i >> 2) * 4 * kThreads + threadIdx.x * 4 + (i & 3);",
+       "return threadIdx.x * kPer + i;"),
+      ("if (kWalk && (i & 3) != 0) {", "if (kWalk && i != 0) {")], True),
+    ("K1 search every slot", _SEARCH_ALL, True),
+    ("K1 256 threads x 4 slots 256 apart, 4-byte stores, search every slot",
+     _threads(256) + _SCALAR_STORES + _SEARCH_ALL, True),
+    ("K1 one thread per slot (1,024 threads), 4-byte stores, search every slot",
+     _threads(1024) + _SCALAR_STORES + _SEARCH_ALL, True),
+    ("K1 A window read from global memory (B staged), search every slot",
+     [("const bool in_win = start >= 0 &&", "const bool in_win = false && start >= 0 &&")], True),
+    # the walk alone is wrong where cum decreases over the search's range
+    # (as in the hand-made windows of tests/torch_cases.py)
+    ("K1 walk forward without the monotone check (timing only: == plain on these parts)",
+     [("if (__syncthreads_and(ok)) {", "if (true) {")], True),
+    ("K1 no search (timing only)",
+     [("const int steps = min(bits, kMaxSteps);", "const int steps = 0 * bits;")], False),
+    ("K1 staging and stores only (timing only)",
+     [(_K1_SLOTS, "    for (int i = 0; i < kPer; ++i) {\n"
+                  "      key[i] = s.s_a[threadIdx.x] + s.s_b[threadIdx.x + i];\n"
+                  "      val[i] = 0.0f;\n    }")], False),
+    ("K1 stores only: every block writes sentinels (timing only)",
+     [("  if (plen > 0) {", "  if (plen < 0) {")], False),
+)
+
+
 K2_VARIANTS = (
     ("K2 as built: 4 slots per thread, 1,024-slot tiles", [], 1024, True),
     ("K2 16 slots per thread, 4,096-slot tiles",
@@ -58,14 +125,16 @@ K5_VARIANTS = (
 
 
 def build_variants(build, source, variants):
-    """One library per variant, all built together; returns name → CDLL."""
+    """One library per variant, all built together; returns name → CDLL.
+    A variant's replacements are (old, new) pairs in ``csrc/<source>.cu``,
+    or the path of another source to build instead."""
     out_dir = build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     text = (build.CSRC / f"{source}.cu").read_text()
     jobs = {}
     for i, (name, subs) in enumerate(variants):
-        src = text
-        for old, new in subs:
+        src = subs.read_text() if isinstance(subs, Path) else text
+        for old, new in [] if isinstance(subs, Path) else subs:
             if old not in src:
                 raise RuntimeError(f"{name}: {old!r} not in {source}.cu")
             src = src.replace(old, new)
@@ -104,30 +173,71 @@ def device_ms(torch, fn, reps=5):
     return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
 
 
-def main() -> int:
-    import numpy as np
-    import torch
+def time_k1(torch, dev, plan, parent=None):
+    """K1's variants on the gather parts of ``plan``; with ``parent``, a
+    checkout of another tree, its K1 source too."""
+    from outerspace_tpu_torch.ops.kernels import gexpand
+    from outerspace_tpu_torch.runtime import build
+    from outerspace_tpu_torch.runtime.build import device_args, tensor_ptr
 
-    if not torch.cuda.is_available():
-        print("kernel_variants: no CUDA device; this script runs on the card only", file=sys.stderr)
-        return 1
-    from outerspace_tpu_torch.convert import load_params
-    from outerspace_tpu_torch.formats import rmat
-    from outerspace_tpu_torch.nn import sparse_infer
-    from outerspace_tpu_torch.nn.data import synthetic_mnist
-    from outerspace_tpu_torch.ops.gather_pipeline import plan_spgemm_gather
-    from outerspace_tpu_torch.ops.kernels import gexpand, scan, spmm
+    variants = list(K1_VARIANTS)
+    if parent is not None:
+        src = Path(parent) / "outerspace_tpu_torch" / "csrc" / "gexpand.cu"
+        variants.insert(1, (f"K1 of the tree at {parent}", src, True))
+    k1_parts = [((p.dev["bases"], p.dev["table"], p.dev["a_pack"], p.dev["b_pack"],
+                  p.dev["group_bits"]), p.b_win) for p in plan.parts]
+    k1_slots = sum(args[1].shape[0] * 8 * 1024 for args, _ in k1_parts)
+    k1_bound = sum(smoke._k1_bytes(args[1].shape[0], p.nab8, p.nbb8, args[1].shape[0] * 8 * 1024)
+                   for (args, _), p in zip(k1_parts, plan.parts)) / smoke.HBM_BYTES_PER_S * 1e3
+    print(f"K1 on {len(k1_parts)} gather parts, {k1_slots} slots (bound {k1_bound:.4f} ms by bytes):")
+    libs = build_variants(build, "gexpand", [v[:2] for v in variants])
+    spin = smoke._spin_cycles(torch, ms=60.0)  # room for a stalled host
+    # the card's rate for K1's output alone: the same keys and values
+    # buffers written by torch's fill (5 x 2 launches)
+    outs = [(torch.empty(a[1].shape[0] * 8 * 1024, dtype=torch.int32, device=dev),
+             torch.empty(a[1].shape[0] * 8 * 1024, dtype=torch.float32, device=dev))
+            for a, _ in k1_parts]
+    ms = smoke._device_ms(torch, lambda: [(k.fill_(7), v.fill_(1.0)) for k, v in outs], spin)
+    print(f"  torch fill_ of the same output buffers (reference): {ms:.4f} ms, "
+          f"{100 * k1_bound / ms:.1f}% of the bound")
+    del outs
+    for name, _, computes in variants:
+        launch = libs[name].gexpand_launch
+        launch.argtypes, launch.restype = gexpand.KERNEL.argtypes, ctypes.c_int
+
+        def k1():
+            outs = []
+            for args, b_win in k1_parts:
+                g = args[1].shape[0]
+                keys = torch.empty(g * 8 * 1024, dtype=torch.int32, device=dev)
+                vals = torch.empty(g * 8 * 1024, dtype=torch.float32, device=dev)
+                err = launch(*map(tensor_ptr, args), tensor_ptr(keys), tensor_ptr(vals), g,
+                             args[2].shape[0], args[3].shape[0], b_win, *device_args(dev))
+                if err:
+                    raise RuntimeError(f"{name}: CUDA error {err}")
+                outs.append((keys, vals))
+            return outs
+
+        if computes:
+            got = k1()
+            torch.cuda.synchronize()
+            for (args, b_win), (k, v) in zip(k1_parts, got):
+                kp, vp = gexpand.expand_gather_plain(*args, b_win=b_win)
+                if not (torch.equal(k, kp) and torch.equal(v.view(torch.int32), vp.view(torch.int32))):
+                    raise RuntimeError(f"{name} disagrees with the plain version on a gather part")
+        ms = smoke._device_ms(torch, k1, spin)
+        print(f"  {name}: {ms:.4f} ms, {100 * k1_bound / ms:.1f}% of the bound"
+              f"{' (== plain)' if computes else ''}")
+
+
+def time_k2(torch, dev, plan):
+    """K2's variants on the sorted streams of the gather parts of ``plan``."""
+    from outerspace_tpu_torch.ops.kernels import gexpand, scan
     from outerspace_tpu_torch.ops.spgemm import I32_MAX
     from outerspace_tpu_torch.runtime import build
     from outerspace_tpu_torch.runtime.build import device_args, tensor_ptr
 
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"card: {smoke._card_line()}")
-
     # K2's inputs: the sorted, sentinel-padded streams of each gather part
-    a = rmat(14, edge_factor=8, seed=1)
-    plan = plan_spgemm_gather(a.to_csc(), a.to_csr(), device=dev)
     streams = []
     for p in plan.parts:
         d = p.dev
@@ -140,25 +250,6 @@ def main() -> int:
         streams.append((skey, val[order], p.merge_pad - p.p_real))
     k2_bytes = sum(k.numel() * 21 + 4 for k, _, _ in streams)
     k2_bound = k2_bytes / smoke.HBM_BYTES_PER_S * 1e3
-
-    # K5's inputs: each layer's staged W and padded X from one forward each
-    calls = []
-    real = sparse_infer.spmm_blockell_device
-
-    def catch(meta, blocks, x, tn):
-        calls.append((meta, blocks, x.clone(), tn))
-        return real(meta, blocks, x, tn)
-
-    data = synthetic_mnist(smoke.REQUESTS * smoke.MLP_BATCH, seed=0)
-    images = np.concatenate([data[k][0] for k in ("train", "val", "test")])
-    sparse_infer.spmm_blockell_device = catch
-    try:
-        sparse_infer.SparseMLP(load_params(smoke.WEIGHTS / "MLP1w" / "prune0p01_finetuned.pkl"),
-                               device=dev)(images[:smoke.MLP_BATCH].reshape(-1, 784))
-        sparse_infer.SparseLeNet(load_params(smoke.WEIGHTS / "LeNet" / "pruned_finetuned"),
-                                 device=dev)(images[:smoke.LENET_BATCH].reshape(-1, 28, 28, 1))
-    finally:
-        sparse_infer.spmm_blockell_device = real
 
     print(f"K2 on {len(streams)} streams of {streams[0][0].numel()} slots "
           f"(bound {k2_bound:.4f} ms by bytes):")
@@ -194,6 +285,37 @@ def main() -> int:
         print(f"  {name}: {ms:.4f} ms, {100 * k2_bound / ms:.1f}% of the bound"
               f"{' (== plain)' if exact else ''}")
 
+
+
+def time_k5(torch, dev):
+    """K5's variants on the layers of one MLP1w and one LeNet forward."""
+    import numpy as np
+    from outerspace_tpu_torch.convert import load_params
+    from outerspace_tpu_torch.nn import sparse_infer
+    from outerspace_tpu_torch.nn.data import synthetic_mnist
+    from outerspace_tpu_torch.ops.kernels import spmm
+    from outerspace_tpu_torch.runtime import build
+    from outerspace_tpu_torch.runtime.build import device_args, tensor_ptr
+
+    # K5's inputs: each layer's staged W and padded X from one forward each
+    calls = []
+    real = sparse_infer.spmm_blockell_device
+
+    def catch(meta, blocks, x, tn):
+        calls.append((meta, blocks, x.clone(), tn))
+        return real(meta, blocks, x, tn)
+
+    data = synthetic_mnist(smoke.REQUESTS * smoke.MLP_BATCH, seed=0)
+    images = np.concatenate([data[k][0] for k in ("train", "val", "test")])
+    sparse_infer.spmm_blockell_device = catch
+    try:
+        sparse_infer.SparseMLP(load_params(smoke.WEIGHTS / "MLP1w" / "prune0p01_finetuned.pkl"),
+                               device=dev)(images[:smoke.MLP_BATCH].reshape(-1, 784))
+        sparse_infer.SparseLeNet(load_params(smoke.WEIGHTS / "LeNet" / "pruned_finetuned"),
+                                 device=dev)(images[:smoke.LENET_BATCH].reshape(-1, 28, 28, 1))
+    finally:
+        sparse_infer.spmm_blockell_device = real
+
     print(f"K5 on {len(calls)} layers:")
     wants = [spmm.spmm_blockell_plain(*c[:3]) for c in calls]
     for name, lib in build_variants(build, "spmm", K5_VARIANTS).items():
@@ -219,9 +341,38 @@ def main() -> int:
         per = [device_ms(torch, lambda i=i: one(i)) for i in range(len(calls))]
         print(f"  {name}: {sum(per):.4f} ms for the 8 layers (MLP1w {sum(per[:3]):.4f}, "
               f"LeNet {sum(per[3:]):.4f}; per layer {', '.join(f'{p:.4f}' for p in per)}; == plain)")
+
+
+def main(argv) -> int:
+    """``argv``: the kernels to time (K1, K2, K5), all by default, and
+    ``--parent DIR`` (see the module's docstring)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device; this script runs on the card only", file=sys.stderr)
+        return 1
+    from outerspace_tpu_torch.formats import rmat
+    from outerspace_tpu_torch.ops.gather_pipeline import plan_spgemm_gather
+
+    parent = None
+    if "--parent" in argv:
+        i = argv.index("--parent")
+        parent, argv = argv[i + 1], argv[:i] + argv[i + 2:]
+    which = argv or ["K1", "K2", "K5"]
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"card: {smoke._card_line()}")
+    a = rmat(14, edge_factor=8, seed=1)
+    plan = plan_spgemm_gather(a.to_csc(), a.to_csr(), device=dev)
+    if "K1" in which:
+        time_k1(torch, dev, plan, parent)
+    if "K2" in which:
+        time_k2(torch, dev, plan)
+    if "K5" in which:
+        time_k5(torch, dev)
     print(smoke._card_line())
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

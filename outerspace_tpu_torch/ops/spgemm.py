@@ -709,7 +709,7 @@ def spgemm(
     residue, then the packed merge with K2, or with ``packed=False`` the
     two-key merge); "auto" resolves to "gather" (the cost model's
     strategy pick waits for its weights to be measured on the card).
-    "flat" is not ported yet (ROADMAP queue A item 4).
+    "flat" is not ported yet (ROADMAP queue A item 3).
     ``packed`` applies to "tiles". ``config``: a
     ``outerspace_tpu_torch.config.Config`` whose ``waste_limit`` steers
     the tile planner (None: the cost model's pick). Work runs on
@@ -718,7 +718,7 @@ def spgemm(
 
     if strategy == "flat":
         raise NotImplementedError(
-            "strategy 'flat' is not ported yet: see ROADMAP.md, queue A, item 4"
+            "strategy 'flat' is not ported yet: see ROADMAP.md, queue A, item 3"
         )
     if strategy not in ("auto", "gather", "tiles"):
         raise ValueError(f"unknown strategy {strategy!r}")

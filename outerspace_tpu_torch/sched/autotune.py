@@ -9,7 +9,7 @@ plans: ``plan_tiled`` takes its default waste limit from
 trimmed row's tile class with :func:`tile_ns`. They are relative weights in the
 planner's own units, not times of any kernel of this port, and they are
 no measurement of the H100. Recalibrating them on the card is queued in
-ROADMAP.md (queue A, item 4), and with it the JAX package's strategy
+ROADMAP.md (queue A, item 3), and with it the JAX package's strategy
 pick (tiles, gather or flat), which ``spgemm(strategy="auto")`` will
 read; until then "auto" means "gather".
 """

@@ -55,6 +55,120 @@ def test_k1_kernel_bit_equal_to_plain(cuda):
         assert int((k != I32_MAX).sum()) == p.p_real
 
 
+def k1_matches_plain(args, b_win):
+    """K1 on the card, twice, against its plain version: bit for bit,
+    one launch counted per call."""
+    before = gexpand.KERNEL.launches
+    k, v = gexpand.expand_gather(*args, b_win=b_win)
+    k2, v2 = gexpand.expand_gather(*args, b_win=b_win)
+    kp, vp = gexpand.expand_gather_plain(*args, b_win=b_win)
+    torch.cuda.synchronize()
+    assert gexpand.KERNEL.launches == before + 2
+    assert torch.equal(k, kp), int((k != kp).sum())
+    assert torch.equal(v.view(torch.int32), vp.view(torch.int32))
+    assert torch.equal(k2, k) and torch.equal(v2.view(torch.int32), v.view(torch.int32))
+    return k
+
+
+K1_PLANS = {
+    # the port's own copies of tests/test_torch_gexpand.py's cases:
+    # (A, B or None for Aᵀ, forced key space of the row split)
+    "wide_rows": lambda: (erdos_renyi(40, 64, 0.1, seed=7), erdos_renyi(64, 900, 0.2, seed=8), None),
+    "multipart": lambda: (erdos_renyi(300, 260, 0.02, seed=44), None, 12_000),
+    "keys_2e31": lambda: (erdos_renyi(50_000, 50_000, 4e-6, seed=45), None, None),
+    # eight row parts of unequal size, commonised to one shape
+    "commonised": lambda: (rmat(10, edge_factor=8, seed=1), None, 200_000),
+}
+
+
+def k1_plan(name, cuda, monkeypatch):
+    from outerspace_tpu_torch.ops import gather_pipeline
+    from outerspace_tpu_torch.sched import gplanner
+
+    a, b, key_space = K1_PLANS[name]()
+    b = a.T if b is None else b  # A·Aᵀ, or A² for a square A
+    if key_space is not None:
+        monkeypatch.setattr(gather_pipeline, "row_partition",
+                            functools.partial(gplanner.row_partition, key_space=key_space))
+    return plan_spgemm_gather(a.to_csc(), b.to_csr(), device=cuda)
+
+
+@pytest.mark.parametrize("depth", [4, 6, 8])
+@pytest.mark.parametrize("name,b_win", [("wide_rows", 3), ("multipart", 5)])
+def test_k1_forced_depths_bit_equal_to_plain(cuda, monkeypatch, name, b_win, depth):
+    # one depth on every group, also where it is shallower than a
+    # subtile's owner span: the kernel must run the same search
+    plan = k1_plan(name, cuda, monkeypatch)
+    assert all(p.b_win == b_win for p in plan.parts)
+    for p in plan.parts:
+        d = p.dev
+        bits = torch.full_like(d["group_bits"], depth)
+        k1_matches_plain((d["bases"], d["table"], d["a_pack"], d["b_pack"], bits), p.b_win)
+
+
+@pytest.mark.parametrize("name", ["keys_2e31", "commonised"])
+def test_k1_plans_bit_equal_to_plain(cuda, monkeypatch, name):
+    plan = k1_plan(name, cuda, monkeypatch)
+    if name == "keys_2e31":
+        assert plan.m * plan.n >= 2**31
+    else:
+        # commonised parts: zero pack blocks past a part's own, and
+        # padding groups (plen = 0 on every subtile)
+        assert len(plan.parts) > 1
+        assert any(p.nab8 < p.dev["a_pack"].shape[0] or p.nbb8 < p.dev["b_pack"].shape[0]
+                   for p in plan.parts)
+        assert any(bool((p.dev["table"][:, :, 3] == 0).all(dim=1).any()) for p in plan.parts)
+    for p in plan.parts:
+        d = p.dev
+        k = k1_matches_plain((d["bases"], d["table"], d["a_pack"], d["b_pack"], d["group_bits"]),
+                             p.b_win)
+        assert int((k != I32_MAX).sum()) == p.p_real
+
+
+# window ref 0 searched from negative anchors in a group at base 0, and
+# negative B window refs: reads before both packs' first blocks
+_BEFORE_THE_PACKS = dict(seed=1, r_a=(0, 2), r_b=(-8, 6))
+
+
+@pytest.mark.parametrize(
+    "b_win,bits,anchors,shift,extra",
+    [(3, 4, (0, 128), 0, {}), (3, 6, (0, 128), 0, {}), (5, 8, (0, 128), 0, {}),
+     (5, None, (0, 128), 0, {}), (5, None, (-100, 300), 0, {}), (40, None, (0, 128), 0, {}),
+     (5, None, (0, 128), 3 * 2**28, {}), (5, None, (0, 128), 2**30, {}),
+     (5, None, (-100, 0), 0, _BEFORE_THE_PACKS)],
+    ids=["bw3-d4", "bw3-d6", "bw5-d8", "bw5-mixed", "bw5-out-of-window", "bw40-mixed",
+         "bw5-offsets-past-2e29", "bw5-offset-sums-past-2e31", "bw5-reads-before-the-packs"],
+)
+def test_k1_odd_windows_bit_equal_to_plain(cuda, b_win, bits, anchors, shift, extra):
+    # cum that runs at random or is all zero, clamped reads, wrapping
+    # keys, padding groups; anchors past [0, 128) send the search out
+    # of the staged A window; b_win 40 stages the widest B window; jb,
+    # cum and p0 past 2^29 (at 2^30 their sums pass 2^31); reads before
+    # the packs wrap once, as the plain version's torch indices do
+    kw = dict(seed=b_win + (bits or 0), b_win=b_win, bits=bits, anchors=anchors, shift=shift)
+    h = torch_cases.k1_odd_windows(**{**kw, **extra})
+    if extra:
+        assert torch_cases.k1_reads_before_the_packs(h) == (True, True)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in h.items()}
+    k1_matches_plain((t["bases"], t["table"], t["a_pack"], t["b_pack"], t["group_bits"]), b_win)
+
+
+def test_k1_unaligned_packs_take_the_scalar_path(cuda):
+    h = torch_cases.k1_odd_windows(seed=9, b_win=5, bits=None)
+
+    def unaligned(x):
+        flat = torch.empty(x.size + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = torch.from_numpy(x.reshape(-1)).to(cuda)
+        return flat[1:].view(x.shape)
+
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in h.items()}
+    a, b = unaligned(h["a_pack"]), unaligned(h["b_pack"])
+    assert a.is_contiguous() and a.data_ptr() % 16 and b.data_ptr() % 16
+    want = k1_matches_plain((t["bases"], t["table"], t["a_pack"], t["b_pack"], t["group_bits"]), 5)
+    got = k1_matches_plain((t["bases"], t["table"], a, b, t["group_bits"]), 5)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("n,pad_count,corner", [(5000, 100, 0), (8192, 96, 3), (8192, 100, 3), (1, 0, 0)])
 def test_k2_kernel_matches_plain(cuda, n, pad_count, corner):
     rng = np.random.default_rng(n + pad_count)

@@ -1,7 +1,7 @@
-"""Operands the tiled strategy's tests share, made with numpy from a seed.
-Each takes the COO class to build with (the JAX package's or the
-port's: both take (shape, rows, cols, vals)), so the files that must not
-import JAX can use them too."""
+"""Inputs the port's tests share, made with numpy from a seed: operands
+for the tiled strategy, each built with the COO class it is given (the
+JAX package's or the port's: both take (shape, rows, cols, vals)), and
+K1 inputs made by hand. Files that must not import JAX use them too."""
 
 import numpy as np
 
@@ -37,3 +37,68 @@ def dense_blocks(coo):
     for i, w in enumerate((128, 256, 128, 5, 130, 128, 256, 129, 128, 200, 1, 128)):
         e[i, rng.choice(300, size=w, replace=False)] = rng.normal(size=w) + 3
     return coo.from_dense(d), coo.from_dense(e)
+
+
+def k1_odd_windows(seed, b_win, bits, ngroups=8, anchors=(0, 128), nab8=3, nbb8=6, shift=0,
+                   r_a=(1, 23), r_b=(0, 6)):
+    """K1 inputs made by hand (int32 numpy arrays, as ``gather_plan_to_host``
+    stages them, plus ``group_bits``) whose windows no planner would
+    build: ``cum`` runs at random, is all zero (the blocks that pad a
+    commonised part) or increases, block by block; anchors are drawn from
+    ``anchors`` (a range past [0, 128) sends the search out of the A
+    window); bases reach past the packs' last 8-block ref, so the reads
+    clamp; row·n_cols passes 2³², so keys wrap; jb lands before, inside
+    and past the B window. Subtile lengths are 0, 1024 or in between, and
+    the last group is all padding (a zero table row). ``bits`` is one
+    search depth for every group, or None for 4, 6 or 8 per group.
+    ``shift`` is added to every jb, nonzero cum and p0 (large values pass
+    2³¹ in the window offset's sum). The window refs ``r_a`` and ``r_b``
+    are drawn from the ranges given: with 0 and a negative anchor, or a
+    negative ``r_b``, a read falls before a pack's start and its index
+    wraps once, as a negative torch index does."""
+    rng = np.random.default_rng(seed)
+    n_cols = 70_001
+    a_pack = np.empty((nab8, 8, 4, 128), np.int32)
+    a_pack[:, :, 0] = rng.integers(0, 70_000, size=(nab8, 8, 128))
+    a_pack[:, :, 1] = rng.standard_normal((nab8, 8, 128)).astype(np.float32).view(np.int32)
+    a_pack[:, :, 2] = rng.integers(-100, 1_400, size=(nab8, 8, 128))
+    kinds = rng.integers(0, 3, size=(nab8, 8))
+    for (r, i), kind in np.ndenumerate(kinds):
+        cum = (rng.integers(0, 600, size=128), np.zeros(128),
+               np.sort(rng.choice(600, size=128, replace=False)))[kind]
+        a_pack[r, i, 3] = cum + (0 if kind == 1 else shift)
+    a_pack[:, :, 2] += shift
+    b_pack = np.empty((nbb8, 8, 2, 128), np.int32)
+    b_pack[:, :, 0] = rng.integers(0, n_cols, size=(nbb8, 8, 128))
+    b_pack[:, :, 1] = rng.standard_normal((nbb8, 8, 128)).astype(np.float32).view(np.int32)
+    table = np.zeros((ngroups, 8, 128), np.int32)
+    bases = np.zeros((ngroups, 2), np.int32)
+    live = ngroups - 1
+    bases[:live, 0] = rng.integers(0, nab8 + 1, size=live)
+    bases[:live, 1] = rng.choice([0, 0, 0, 1, nbb8], size=live)
+    table[:live, :, 0] = rng.integers(*r_a, size=(live, 8))
+    table[:live, :, 1] = rng.integers(*r_b, size=(live, 8))
+    table[:live, :, 2] = rng.integers(0, 300, size=(live, 8)) + shift
+    table[:live, :, 3] = rng.choice([0, 1, 1024, 333, 1000], size=(live, 8))
+    table[:live, :, 6] = rng.integers(*anchors, size=(live, 8))
+    table[:, :, 5] = n_cols
+    if bits is None:
+        group_bits = rng.choice([4, 6, 8], size=ngroups).astype(np.int32)
+    else:
+        group_bits = np.full(ngroups, bits, np.int32)
+    return dict(bases=bases.reshape(-1), table=table, a_pack=a_pack, b_pack=b_pack,
+                group_bits=group_bits)
+
+
+def k1_reads_before_the_packs(h):
+    """Whether some live subtile of ``k1_odd_windows``'s ``h`` reads before
+    the A pack's first block (window ref 0 in a group at base 0, searched
+    from a negative anchor) and before the B pack's (a negative window
+    ref in a group at base 0)."""
+    tab = h["table"]
+    live = tab[:, :, 3] > 0
+    a8, b8 = h["bases"][0::2, None], h["bases"][1::2, None]
+    shallow = (h["group_bits"] < 8)[:, None]
+    a = live & shallow & (tab[:, :, 0] == 0) & (a8 == 0) & (tab[:, :, 6] < 0)
+    b = live & (tab[:, :, 1] < 0) & (b8 == 0)
+    return bool(a.any()), bool(b.any())
