@@ -6,13 +6,21 @@ Run from the repository root:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (``outerspace_tpu_torch/csrc/*.cu``,
-into ``build/``) and drives ``spgemm(A, A)`` through the user entry
-point on each path, checking every result exactly against scipy:
+into ``build/``) and its native planner core (``csrc/gplan.cpp``, g++),
+and drives ``spgemm(A, A)`` through the user entry point on each path,
+checking every result exactly against scipy:
 
 - the windowed-gather pipeline (K1, sort, K2) on rmat14_ef8 and er100k;
 - the tiled pipeline on rmat14_ef8, packed (K3, K1, sort, K2) and with
   ``packed=False`` (K4, K1, the two-key merge), and on er100k (rebased
   row parts);
+- the flat strategy (the flat expand, sort, K2) on the three
+  ``data/mtx`` fixtures, one with a pinned ``p_pad``;
+- ``strategy="auto"`` on rmat14_ef8 and er100k, with the cost model's
+  pick and modeled costs beside each strategy's measured time;
+- triangle counting on rmat(13, edge_factor=8, seed=4) by the dense
+  route, the sparse route (K3, K1, sort, K2, bitmap sum) and "auto",
+  each count equal to scipy's;
 - sparse-NN inference: ``SparseMLP`` (MLP1w 784-1000-1000-10, pruned to
   1%) at batch 1024 and ``SparseLeNet`` (pruned LeNet) at batch 256, with
   the committed trained weights, each serving four requests through K5
@@ -26,8 +34,12 @@ card at the main path's shapes (K1 on every gather part and tiled
 residue of both operands), and times the kernels, ``torch.sort``
 and ``torch.matmul`` of K5's densified weights (CUDA events, the
 device's time alone and with the host's launches), the plain versions
-(CUDA events), each pipeline's end-to-end split (the host clock), and
-each pipeline's and kernel's device activity (``torch.profiler``).
+(CUDA events), each pipeline's end-to-end split (the host clock; the
+host plan also with the planner's Python loops, the fetch also by the
+pageable copy of every padded slot and by pinned buffers), and each
+pipeline's and kernel's device activity (``torch.profiler``). From
+device-only times it derives the cost model's per-element weights and
+the triangle selector's two weights, and prints them.
 
 Output: one line per phase with its seconds, a ``{"kernels": [...]}``
 JSON line, the card's name and power limit, and as the last line
@@ -130,11 +142,18 @@ def _device_ms(torch, fn, spin: int, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def _split_ms(torch, plan_fn, run_fn, samples: int = 3):
+def _split_ms(torch, plan_fn, run_fn, samples: int = 3, fetch=lambda merged: merged.to_csr()):
     """End to end in three stages (host plan incl. staging, device
-    pipeline, fetch to CSR), host clock, the median sample by total."""
+    pipeline, fetch to CSR), host clock. Returns the median sample by
+    total, every sample as (plan, device, fetch, the caching allocator's
+    cudaMalloc calls during it), and the last sample's fetched result.
+    A sample's plan, result and fetched result are released before the
+    next sample, so each reuses the blocks the caching allocators hold
+    (device memory, and the pinned host buffers of the fetch)."""
     splits = []
     for _ in range(samples):
+        got = None
+        mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
         ta = time.perf_counter()
         plan = plan_fn()
         torch.cuda.synchronize()
@@ -142,10 +161,35 @@ def _split_ms(torch, plan_fn, run_fn, samples: int = 3):
         merged = run_fn(plan)
         torch.cuda.synchronize()
         tc = time.perf_counter()
-        merged.to_csr()
+        got = fetch(merged)
         td = time.perf_counter()
-        splits.append(((tb - ta) * 1e3, (tc - tb) * 1e3, (td - tc) * 1e3))
-    return sorted(splits, key=sum)[len(splits) // 2]
+        mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - mallocs
+        splits.append(((tb - ta) * 1e3, (tc - tb) * 1e3, (td - tc) * 1e3, mallocs))
+        del plan, merged
+    return sorted(splits, key=lambda x: sum(x[:3]))[len(splits) // 2][:3], splits, got
+
+
+def _strategy_fns(st, x_csc, x_csr, dev):
+    """(host plan incl. staging, device pipeline) of one strategy of
+    ``spgemm``, as ``_split_ms`` times them."""
+    from outerspace_tpu_torch.ops.gather_pipeline import plan_spgemm_gather, spgemm_gather_padded
+    from outerspace_tpu_torch.ops.spgemm import (
+        plan_tiled_parts,
+        plan_to_device,
+        spgemm_padded,
+        spgemm_padded_tiled_parts,
+    )
+    from outerspace_tpu_torch.ops.symbolic import expansion_plan
+
+    if st == "gather":
+        return lambda: plan_spgemm_gather(x_csc, x_csr, device=dev), spgemm_gather_padded
+    if st == "tiles":
+        return lambda: plan_tiled_parts(x_csc, x_csr, device=dev), spgemm_padded_tiled_parts
+
+    def plan_flat():
+        fp = expansion_plan(x_csc, x_csr)
+        return fp, plan_to_device(fp, dev)
+    return plan_flat, lambda planned: spgemm_padded(planned[0], device_args=planned[1])
 
 
 # kernel name fragments (as CUPTI reports the demangled names) by kernel;
@@ -225,6 +269,16 @@ def _k1_bytes(groups: int, nab8: int, nbb8: int, slots: int) -> int:
             + nbb8 * 8 * 2 * 128 * 4 + slots * 8)
 
 
+def _host_ms(fn, samples: int = 3) -> float:
+    """Median wall time of ``fn`` (which ends on the host), ms."""
+    times = []
+    for _ in range(samples):
+        ta = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - ta) * 1e3)
+    return statistics.median(times)
+
+
 def _rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
@@ -283,26 +337,28 @@ def main() -> int:
         return 1
 
     from outerspace_tpu_torch.convert import load_params, state_dict_from_params
-    from outerspace_tpu_torch.formats import erdos_renyi, rmat
+    from outerspace_tpu_torch.formats import erdos_renyi, read_mtx, rmat
     from outerspace_tpu_torch.nn import sparse_infer
     from outerspace_tpu_torch.nn.data import synthetic_mnist
     from outerspace_tpu_torch.nn.export import im2col
     from outerspace_tpu_torch.nn.models import make_model
-    from outerspace_tpu_torch.ops import spgemm
-    from outerspace_tpu_torch.ops.gather_pipeline import (
-        plan_spgemm_gather,
-        spgemm_gather_padded,
-    )
+    from outerspace_tpu_torch.ops import graph, spgemm
+    from outerspace_tpu_torch.ops.gather_pipeline import plan_spgemm_gather
     from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan, spmm
     from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_scipy
     from outerspace_tpu_torch.ops.spgemm import (
         I32_MAX,
         TiledPartsPlan,
+        _expand_light_packed,
+        merge_biased_keys,
         plan_tiled_parts,
-        spgemm_padded_tiled_parts,
+        plan_to_device,
     )
+    from outerspace_tpu_torch.ops.symbolic import expansion_plan
     from outerspace_tpu_torch.runtime import build
+    from outerspace_tpu_torch.sched import autotune
     from outerspace_tpu_torch.sched.gplanner import GROUP_SUBS
+    from outerspace_tpu_torch.sched.planner import TILE_A_CLASSES
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -320,6 +376,7 @@ def main() -> int:
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  ptxas {name}: {ln.strip()}")
+    print(f"  g++ planner core: {build.build_host('gplan').name}")
     _phase("build", t0)
 
     kernels = {"K1": gexpand.KERNEL, "K2": scan.KERNEL,
@@ -356,6 +413,49 @@ def main() -> int:
                    strategy="tiles", packed=False)
     drive("er100k tiles", a2, want2, ("K1", "K2"), strategy="tiles")
     launches["K3"], launches["K4"] = tiles["K3"], coords["K4"]
+    # the flat strategy at full size: the packed merge (sort + K2) on
+    # rmat14_ef8, the two-key merge past m·n = 2³² on er100k
+    flat_k2 = {"rmat14_ef8": drive("rmat14_ef8 flat", a1, want1, ("K2",), strategy="flat")["K2"]}
+    drive("er100k flat (two-key merge)", a2, want2, (), strategy="flat")
+
+    # ---- the flat strategy on the fixtures the JAX bench forces onto it,
+    # one of them with a pinned p_pad (an odd length past P)
+    mtx = Path(__file__).resolve().parent / "data" / "mtx"
+    for fname in ("rmat10_ef8", "band2048_p5", "mesh2d_48"):
+        a = read_mtx(str(mtx / f"{fname}.mtx"))
+        want = spgemm_scipy(a, a)
+        flat_k2[fname] = drive(f"{fname} flat", a, want, ("K2",), strategy="flat")["K2"]
+    p_fix = expansion_plan(a.to_csc(), a.to_csr()).expansion_size + 5
+    flat_k2[f"{fname} p_pad={p_fix}"] = drive(f"{fname} p_pad={p_fix} (flat)", a, want, ("K2",),
+                                              p_pad=p_fix)["K2"]
+    print(f"flat strategy, K2 launches per product: {json.dumps(flat_k2)}")
+
+    # ---- strategy="auto": the cost model's pick under this card's weights
+    auto_path = {"gather": ("K1", "K2"), "tiles": ("K1", "K2"), "flat": ("K2",)}
+    for name, a, want in (("rmat14_ef8", a1, want1), ("er100k", a2, want2)):
+        pick = autotune.autotune(a.to_csc(), a.to_csr())[0]
+        drive(f"{name} auto (picks {pick})", a, want, auto_path[pick], strategy="auto")
+
+    # ---- triangle counting: dense, sparse and auto against scipy
+    t0 = time.perf_counter()
+    tri_g = rmat(13, edge_factor=8, seed=4)
+    tri_want = graph.triangle_count(tri_g, backend="scipy")
+    sym = graph._symmetrize_simple(tri_g)
+    tri_pick = graph._triangle_strategy(sym)
+    for route, path in (("dense", ()), ("sparse", ("K3", "K1", "K2")), ("auto", ())):
+        for k in kernels.values():
+            k.launches = 0
+        got = graph.triangle_count(tri_g, strategy=route, device=dev)
+        torch.cuda.synchronize()
+        counts = {n: k.launches for n, k in kernels.items()}
+        if got != tri_want:
+            raise RuntimeError(f"triangles by the {route} route: {got}, scipy {tri_want}")
+        for n in path:
+            if counts[n] == 0:
+                raise RuntimeError(f"triangles, {route} route: kernel {n} was never launched")
+        print(f"triangles rmat13 {route}{f' (picks {tri_pick})' if route == 'auto' else ''}: "
+              f"{got} == scipy; launches {counts}")
+    _phase("triangles", t0)
 
     # ---- sparse-NN inference: the trained weights, four requests per model
     t0 = time.perf_counter()
@@ -419,7 +519,7 @@ def main() -> int:
     t0 = time.perf_counter()
     a_csc, b_csr = a1.to_csc(), a1.to_csr()
     plan = plan_spgemm_gather(a_csc, b_csr, device=dev)
-    k1_in, k2_in = [], []
+    k1_in, k2_in, merge_in = [], [], []
     k1_err = k2_err = 0.0
     for p in plan.parts:
         d = p.dev
@@ -440,6 +540,7 @@ def main() -> int:
         skey, order = torch.sort(key)
         sval = val[order]
         pad = p.merge_pad - p.p_real
+        merge_in.append((key, val, pad))
         k2_in.append((skey, sval, pad))
         got = scan.merge_epilogue_scan(skey, sval, pad, n_cols=plan.n, sentinel_row=plan.m)
         want = scan.merge_epilogue_plain(skey, sval, pad, n_cols=plan.n, sentinel_row=plan.m)
@@ -680,16 +781,88 @@ def main() -> int:
           f"bound {k5_bound:.4f} by {k5_by}); K5 {'below' if k5_ms < k5_lib_ms else 'NOT below'} "
           f"torch.matmul, {k5_lib_ms / k5_ms:.2f}x")
 
-    pipelines = []
-    for name, plan_fn, run_fn in (
-        ("gather", lambda: plan_spgemm_gather(a_csc, b_csr, device=dev), spgemm_gather_padded),
-        ("tiles", lambda: plan_tiled_parts(a_csc, b_csr, device=dev), spgemm_padded_tiled_parts),
-    ):
-        plan_ms, device_ms, fetch_ms = _split_ms(torch, plan_fn, run_fn)
-        print(f"rmat14_ef8 {name} end to end {plan_ms + device_ms + fetch_ms:.3f} ms: "
-              f"host plan {plan_ms:.3f}, device {device_ms:.3f}, fetch to CSR {fetch_ms:.3f}")
-        pipelines.append((name, plan_fn(), run_fn))
-    _phase("timing: end-to-end splits", t0)
+    # ---- the cost model's per-element weights on this card, ns per slot
+    # (device-only CUDA events on rmat14_ef8's streams): K1 per gather
+    # slot, torch.sort + K2 per merge-stream slot, the flat expand per
+    # slot of the flat plan, K3 per padded slot of each tile class
+    merge_ms = _device_ms(torch, lambda: [merge_biased_keys(k, v, plan.n, plan.m, pad)
+                                          for k, v, pad in merge_in], spin)
+    merge_slots = sum(k.numel() for k, _, _ in merge_in)
+    fplan = expansion_plan(a_csc, b_csr)
+    fdev, f_pad = plan_to_device(fplan, dev), fplan.padded_size()
+    flat_ms = _device_ms(torch, lambda: _expand_light_packed(
+        **fdev, p_pad=f_pad, sentinel_row=fplan.m, n_cols=fplan.n), spin)
+    tile_ns = {}
+    for ta in TILE_A_CLASSES:
+        sel = [(s, args, n) for s, args, n, _ in tables if s.tile_a == ta]
+        if sel:
+            ms = _device_ms(torch, lambda sel=sel, ta=ta: [
+                expand.expand_tiles_packed(*args, tile_a=ta, n_cols=n) for _, args, n in sel], spin)
+            tile_ns[ta] = ms * 1e6 / sum(s.padded_heavy for s, _, _ in sel)
+    del fdev
+    weights = {"GATHER_NS": k1_ms * 1e6 / n_slots, "SORT_NS": merge_ms * 1e6 / merge_slots,
+               "FLAT_NS": flat_ms * 1e6 / f_pad, "TILE_NS_BY_CLASS": tile_ns}
+    print(f"cost-model weights measured on this card, ns per slot (device-only CUDA events; "
+          f"K1 {k1_ms:.4f} ms over {n_slots} slots, sort + K2 {merge_ms:.4f} ms over "
+          f"{merge_slots}, flat expand {flat_ms:.4f} ms over {f_pad}): {json.dumps(weights)}")
+    print("cost-model weights in use: " + json.dumps({
+        "GATHER_NS": autotune.GATHER_NS, "SORT_NS": autotune.SORT_NS, "FLAT_NS": autotune.FLAT_NS,
+        "TILE_NS_BY_CLASS": autotune.TILE_NS_BY_CLASS, "GATHER_FILL": autotune.GATHER_FILL,
+        "TILES_MARGIN": autotune.TILES_MARGIN}))
+
+    t1 = time.perf_counter()
+    splits = {}
+    for op, x_csc, x_csr, want in (("rmat14_ef8", a_csc, b_csr, want1),
+                                   ("er100k", a2_csc, a2_csr, want2)):
+        for st in ("gather", "tiles", "flat"):
+            splits[op, st], samples, got = _split_ms(torch, *_strategy_fns(st, x_csc, x_csr, dev))
+            assert_csr_allclose(got, want, rtol=VAL_RTOL, atol=VAL_ATOL)
+            plan_ms, device_ms, fetch_ms = splits[op, st]
+            print(f"{op} {st} end to end {plan_ms + device_ms + fetch_ms:.3f} ms: host plan "
+                  f"{plan_ms:.3f}, device {device_ms:.3f}, fetch to CSR {fetch_ms:.3f} "
+                  f"(result == scipy; samples: "
+                  + ", ".join(f"{sum(x[:3]):.3f} [device {x[1]:.3f}, {x[3]} cudaMalloc]"
+                              for x in samples) + ")")
+    for op, x_csc, x_csr, x_plan in (("rmat14_ef8", a_csc, b_csr, plan),
+                                     ("er100k", a2_csc, a2_csr, None)):
+        cost, wl, padded = autotune.strategy_costs(x_csc, x_csr)
+        if x_plan is None:
+            x_plan = plan_spgemm_gather(x_csc, x_csr, device=dev)
+        fill = sum(p.merge_pad for p in x_plan.parts) / x_plan.flops
+        print(f"{op} auto picks {autotune.autotune(x_csc, x_csr)[0]} (waste limit {wl}, padded "
+              f"tile stream {padded}); modeled device ms under the weights in use: "
+              + ", ".join(f"{st} {ns / 1e6:.4f}" for st, ns in cost.items())
+              + "; measured end to end ms (device ms): "
+              + ", ".join(f"{st} {sum(splits[op, st]):.3f} ({splits[op, st][1]:.3f})"
+                          for st in cost)
+              + f"; gather merge stream {fill:.4f} x the products")
+    _phase("timing: end-to-end splits", t1)
+
+    pipelines = [(st, *_strategy_fns(st, a_csc, b_csr, dev)) for st in ("gather", "tiles")]
+    pipelines = [(st, plan_fn(), run_fn) for st, plan_fn, run_fn in pipelines]
+
+    # the triangle routes, each from the symmetric adjacency on the host
+    # to the count (the selector's weights) and on the device alone
+    t1 = time.perf_counter()
+    n_pad = graph._n_pad(sym)
+    products = int((np.bincount(sym.row, minlength=sym.shape[0]).astype(np.int64) ** 2).sum())
+    dense_ms = _host_ms(lambda: graph.triangle_count_dense(sym, device=dev))
+    sparse_ms = _host_ms(lambda: graph.triangle_count_device(graph.triangle_prepare(sym, device=dev)))
+    rows_d = torch.from_numpy(sym.row.astype(np.int64)).to(dev)
+    cols_d = torch.from_numpy(sym.col.astype(np.int64)).to(dev)
+    prep = graph.triangle_prepare(sym, device=dev)
+    dense_dev = _median_ms(torch, lambda: graph._tri_dense_total(rows_d, cols_d, n_pad))
+    sparse_dev = _median_ms(torch, lambda: graph._tri_sparse_total(prep))
+    print(f"triangles rmat13 (n_pad {n_pad}, {products} sparse products): dense route "
+          f"{dense_ms:.3f} ms end to end ({dense_dev:.4f} by CUDA events from the staged "
+          f"inputs), sparse route {sparse_ms:.3f} ms ({sparse_dev:.4f} from the staged plan); "
+          f"selector weights measured on this card: "
+          + json.dumps({"DENSE_NS_PER_NPAD3": dense_ms * 1e6 / n_pad ** 3,
+                        "SPARSE_NS_PER_PRODUCT": sparse_ms * 1e6 / products})
+          + "; in use: " + json.dumps({"DENSE_NS_PER_NPAD3": graph.DENSE_NS_PER_NPAD3,
+                                       "SPARSE_NS_PER_PRODUCT": graph.SPARSE_NS_PER_PRODUCT}))
+    del prep, rows_d, cols_d
+    _phase("timing: triangle routes", t1)
     t1 = time.perf_counter()
     for model_name, (model, x, _) in served.items():
         model(x)

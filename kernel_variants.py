@@ -3,9 +3,11 @@
 (``csrc/spmm.cu``) on one NVIDIA card, at the shapes ``chip_smoke.py``
 drives: the five gather parts of rmat14_ef8 A² (K1) and their sorted
 streams (K2), and the eight layers of one MLP1w b1024 and one LeNet b256
-forward with the committed weights (K5). Run from the repository root:
+forward with the committed weights (K5); and, with ROUTES, the earlier
+routes of ``spgemm``'s host stages beside the committed ones
+(``time_routes``). Run from the repository root:
 
-    python3 kernel_variants.py [K1] [K2] [K5] [--parent DIR]
+    python3 kernel_variants.py [K1] [K2] [K5] [ROUTES] [--parent DIR]
 
 Each variant is the kernel's source with some of its constants (or one
 line) replaced, built with the port's ``nvcc`` flags into
@@ -171,6 +173,92 @@ def device_ms(torch, fn, reps=5):
     if not dev:
         raise RuntimeError("the profiler recorded no device activity")
     return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
+
+
+def _fetch_every_slot(np, CSR, merged):
+    """The fetch before compaction on the card: every padded slot of the
+    four streams copied to pageable host memory, masked and counted
+    there."""
+    valid = merged.valid.cpu().numpy()
+    rows = merged.rows.cpu().numpy()[valid]
+    cols = merged.cols.cpu().numpy()[valid]
+    vals = merged.vals.cpu().numpy()[valid]
+    indptr = np.zeros(merged.shape[0] + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=merged.shape[0]), out=indptr[1:])
+    return CSR(merged.shape, indptr, cols, vals)
+
+
+def _fetch_pageable(CSR, compact, merged):
+    """``MergedCOO.to_csr`` with the copies into pageable host memory
+    instead of pinned buffers."""
+    _, cols, vals, indptr, _ = compact(merged.rows, merged.cols, merged.vals, merged.valid,
+                                       nnz_pad=int(merged.nnz), m=merged.shape[0])
+    return CSR(merged.shape, indptr.cpu().numpy(), cols.cpu().numpy(), vals.cpu().numpy())
+
+
+def _samples(samples):
+    return ", ".join(f"{sum(x[:3]):.3f} [plan {x[0]:.3f}, device {x[1]:.3f}, fetch {x[2]:.3f}, "
+                     f"{x[3]} cudaMalloc]" for x in samples)
+
+
+def time_routes(torch, dev, a):
+    """rmat14_ef8 A² (``a``) end to end in ``chip_smoke._split_ms``'s three
+    stages. On the gather and tiled pipelines: the fetch to CSR by its
+    two earlier routes (every padded slot to pageable memory, masked on
+    the host; compacted on the card with pageable copies) beside the
+    committed one (compacted, pinned buffers), and the host plan by the
+    planner's Python loops beside its native core, and the pinned fetch
+    while every earlier result is held. Then gather, tiles and
+    flat in that order, ten samples each, each sample with its caching
+    allocator cudaMalloc calls; and flat once more after the allocator's
+    cache is emptied. Every result is held to scipy's."""
+    import numpy as np
+
+    from outerspace_tpu_torch.formats.csr import CSR
+    from outerspace_tpu_torch.ops.chain import compact_to_csr_device
+    from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_scipy
+    from outerspace_tpu_torch.sched import gplanner
+
+    want = spgemm_scipy(a, a)
+    a_csc, a_csr = a.to_csc(), a.to_csr()
+
+    def split(st, fetch=lambda merged: merged.to_csr(), samples=3):
+        med, every, got = smoke._split_ms(torch, *smoke._strategy_fns(st, a_csc, a_csr, dev),
+                                          samples=samples, fetch=fetch)
+        assert_csr_allclose(got, want, rtol=smoke.VAL_RTOL, atol=smoke.VAL_ATOL)
+        return med, every
+
+    for st in ("gather", "tiles"):
+        (plan_ms, device_ms, fetch_ms), _ = split(st)
+        print(f"rmat14_ef8 {st}: host plan {plan_ms:.3f} ms, device {device_ms:.3f}, fetch to "
+              f"CSR compacted to pinned buffers {fetch_ms:.3f}")
+        for label, fetch in (
+                ("every padded slot to pageable memory, masked on the host",
+                 lambda merged: _fetch_every_slot(np, CSR, merged)),
+                ("compacted, to pageable memory",
+                 lambda merged: _fetch_pageable(CSR, compact_to_csr_device, merged))):
+            (_, _, fetch_ms), _ = split(st, fetch)
+            print(f"  fetch to CSR, {label}: {fetch_ms:.3f} ms")
+        held = []
+        _, every = split(st, lambda merged: held.append(merged.to_csr()) or held[-1])
+        print(f"  fetch to CSR to pinned buffers, every earlier result still held (the host "
+              f"allocator's cache has no free buffer): "
+              + ", ".join(f"{x[2]:.3f}" for x in every) + " ms")
+        del held
+        native = (gplanner._cut_subtiles, gplanner._pack_groups)
+        try:
+            gplanner._cut_subtiles, gplanner._pack_groups = (gplanner._cut_subtiles_loop,
+                                                             gplanner._pack_groups_loop)
+            (plan_ms, _, _), _ = split(st)
+        finally:
+            gplanner._cut_subtiles, gplanner._pack_groups = native
+        print(f"  host plan with the planner's Python loops: {plan_ms:.3f} ms")
+    for st in ("gather", "tiles", "flat"):
+        _, every = split(st, samples=10)
+        print(f"rmat14_ef8 {st}, 10 samples, ms: {_samples(every)}")
+    torch.cuda.empty_cache()
+    _, every = split("flat")
+    print(f"rmat14_ef8 flat after torch.cuda.empty_cache(), ms: {_samples(every)}")
 
 
 def time_k1(torch, dev, plan, parent=None):
@@ -344,7 +432,7 @@ def time_k5(torch, dev):
 
 
 def main(argv) -> int:
-    """``argv``: the kernels to time (K1, K2, K5), all by default, and
+    """``argv``: what to time (K1, K2, K5, ROUTES), all by default, and
     ``--parent DIR`` (see the module's docstring)."""
     import torch
 
@@ -358,7 +446,7 @@ def main(argv) -> int:
     if "--parent" in argv:
         i = argv.index("--parent")
         parent, argv = argv[i + 1], argv[:i] + argv[i + 2:]
-    which = argv or ["K1", "K2", "K5"]
+    which = argv or ["K1", "K2", "K5", "ROUTES"]
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {smoke._card_line()}")
@@ -370,6 +458,8 @@ def main(argv) -> int:
         time_k2(torch, dev, plan)
     if "K5" in which:
         time_k5(torch, dev)
+    if "ROUTES" in which:
+        time_routes(torch, dev, a)
     print(smoke._card_line())
     return 0
 

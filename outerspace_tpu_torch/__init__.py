@@ -7,16 +7,20 @@ to find, and it imports nothing of that package:
 - ``formats``  — COO / CSR / CSC containers, block-ELL, Matrix Market
   reader, Erdős–Rényi and R-MAT generators (numpy, bit-identical to the
   JAX package's for the same seed).
-- ``sched``    — the windowed-gather and tile host planners (numpy).
-- ``ops``      — single-device SpGEMM: host plan, the expand kernels
-  (K1 gather, K3 / K4 dense tiles), ``torch.sort``, the merge epilogue
-  kernel (K2), and compaction to CSR; and K5, the block-ELL SpMM.
+- ``sched``    — the windowed-gather and tile host planners (numpy, with
+  a native C++ core built by g++) and the cost model's strategy pick.
+- ``ops``      — single-device SpGEMM (strategies gather, tiles, flat and
+  "auto"): host plan, the expand kernels (K1 gather, K3 / K4 dense
+  tiles), ``torch.sort``, the merge epilogue kernel (K2), and compaction
+  to CSR on the card; triangle counting (``ops.graph``); and K5, the
+  block-ELL SpMM.
 - ``nn``       — sparse-NN inference: ``SparseMLP`` / ``SparseLeNet``
   through K5, the SpGEMM forwards, the dense torch models.
 - ``convert``  — operands, plans and trained weights carried across from
   the JAX package's formats.
 - ``runtime``  — builds the hand-written CUDA kernels in ``csrc/`` with
-  ``nvcc`` at first use and loads them with ``ctypes``.
+  ``nvcc`` (and the planner core with ``g++``) at first use and loads
+  them with ``ctypes``.
 
 Entry points take an explicit ``device`` ("cuda" by default; pass "cpu"
 to run each kernel's plain PyTorch version).

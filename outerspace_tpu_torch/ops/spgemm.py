@@ -5,8 +5,10 @@ single-device paths run:
 
 - the merge stage: biased-key packing, sort, merge epilogue (K2), the
   two-key merge, and the merged result (``MergedCOO``);
-- the flat expand (``expand_partial_products``), which the tiled
-  strategy's light residue runs when m·n > 2³²;
+- the flat strategy: the expand (``expand_partial_products``) over a
+  symbolic plan, then the packed merge (sort + K2) or the two-key merge
+  (``spgemm_padded``); the tiled strategy's light residue runs the same
+  expand when m·n > 2³²;
 - the tiled strategy: dense-tile classes expanded by K3 (packed keys)
   or K4 (coordinates), the residue by K1, then one merge; with row
   parts (``plan_tiled_parts``), rebased to part-local keys past 2³².
@@ -16,6 +18,9 @@ wraparound, so signed int32 order equals the unsigned order of
 ``row·n + col`` and one int32 sort covers every m·n ≤ 2³². PyTorch has no
 wrapping int32 multiply-add that is safe to rely on, so the arithmetic
 runs in int64 and narrows at the end.
+
+A merged result goes to the host compacted on the device
+(``MergedCOO.to_csr``): only its nnz entries and ``indptr`` are copied.
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ def unpack_key_biased(key: torch.Tensor, n_cols: int):
 
 
 # --------------------------------------------------------------------------
-# Flat expand (the tiled strategy's light residue past 2³²)
+# Flat expand (the flat strategy, and the tiled residue past 2³²)
 # --------------------------------------------------------------------------
 
 
@@ -201,15 +206,80 @@ class MergedCOO:
     nnz: torch.Tensor  # int32 scalar
 
     def to_csr(self) -> CSR:
-        """Fetch to host and build an exact-nnz CSR."""
-        valid = self.valid.cpu().numpy()
-        rows = self.rows.cpu().numpy()[valid]
-        cols = self.cols.cpu().numpy()[valid]
-        vals = self.vals.cpu().numpy()[valid]
-        counts = np.bincount(rows, minlength=self.shape[0])
-        indptr = np.zeros(self.shape[0] + 1, dtype=np.int64)
-        np.cumsum(counts, out=indptr[1:])
-        return CSR(self.shape, indptr, cols, vals)
+        """An exact-nnz host CSR: compacted on the device
+        (``ops.chain.compact_to_csr_device``; the stream is row-major
+        sorted and compaction keeps its order), nnz read once, and only
+        the nnz columns and values and ``indptr`` copied to the host,
+        from a CUDA device into pinned buffers (pageable memory took
+        4-8x longer on the H100's host; ``PERF.md`` §6)."""
+        from outerspace_tpu_torch.ops.chain import compact_to_csr_device
+
+        _, cols, vals, indptr, _ = compact_to_csr_device(
+            self.rows, self.cols, self.vals, self.valid,
+            nnz_pad=int(self.nnz), m=self.shape[0],
+        )
+        parts = (indptr, cols, vals)
+        if cols.is_cuda:
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in parts]
+            for h, t in zip(host, parts):
+                h.copy_(t, non_blocking=True)
+            torch.cuda.current_stream(cols.device).synchronize()
+            parts = host
+        return CSR(self.shape, *(t.numpy() for t in parts))
+
+
+# --------------------------------------------------------------------------
+# Flat strategy: one expand over the symbolic plan, then one merge
+# --------------------------------------------------------------------------
+
+
+def _spgemm_device(
+    a_rows, a_vals, a_k, b_indptr, b_cols, b_vals, offsets, p_total,
+    *, p_pad: int, sentinel_row: int, n_cols: int, packed: bool,
+):
+    """The flat device stage: expand over [0, p_pad), then the packed
+    merge (sort + K2; ``pad_count`` = the slots past P) or the two-key
+    merge. Returns (rows, cols, vals, valid, nnz)."""
+    args = (a_rows, a_vals, a_k, b_indptr, b_cols, b_vals, offsets, p_total)
+    if packed:
+        key, v = _expand_light_packed(
+            *args, p_pad=p_pad, sentinel_row=sentinel_row, n_cols=n_cols
+        )
+        return merge_biased_keys(key, v, n_cols, sentinel_row, p_pad - p_total)
+    r, c, v = expand_partial_products(*args, p_pad, sentinel_row)
+    return merge_twokey(r, c, v, sentinel_row)
+
+
+def can_pack(plan: ExpansionPlan) -> bool:
+    """Biased-uint32 packing covers every m·n ≤ 2³² (e.g. 65536²)."""
+    return plan.m * plan.n <= 2**32
+
+
+def spgemm_padded(
+    plan: ExpansionPlan,
+    p_pad: int | None = None,
+    device_args: dict | None = None,
+    packed: bool | None = None,
+    device: str | torch.device = "cuda",
+) -> MergedCOO:
+    """The flat strategy on ``device`` (or where ``device_args``, from
+    :func:`plan_to_device`, lie); returns the padded merged result.
+    ``p_pad`` (default ``plan.padded_size()``) must hold the expansion;
+    ``packed`` (default :func:`can_pack`) picks the packed merge, which
+    m·n > 2³² refuses."""
+    if p_pad is None:
+        p_pad = plan.padded_size()
+    if plan.expansion_size > p_pad:
+        raise ValueError(f"p_pad={p_pad} smaller than expansion size {plan.expansion_size}")
+    if packed is None:
+        packed = can_pack(plan)
+    if packed and not can_pack(plan):
+        raise ValueError(f"packed keys need m*n <= 2^32, got {plan.m}*{plan.n}")
+    dev = device_args if device_args is not None else plan_to_device(plan, device)
+    rows, cols, vals, valid, nnz = _spgemm_device(
+        **dev, p_pad=int(p_pad), sentinel_row=plan.m, n_cols=plan.n, packed=packed
+    )
+    return MergedCOO((plan.m, plan.n), rows, cols, vals, valid, nnz)
 
 
 def empty_csr(m: int, n: int) -> CSR:
@@ -700,6 +770,7 @@ def spgemm(
     packed: bool | None = None,
     config=None,
     device: str | torch.device = "cuda",
+    p_pad: int | None = None,
 ) -> CSR:
     """C = A @ B; returns a host CSR with exact nnz.
 
@@ -707,31 +778,46 @@ def spgemm(
     (``ops.gather_pipeline``: K1, sort, K2); "tiles" runs the tiled
     pipeline (``plan_tiled_parts``: K3 or K4 per tile class, K1 on the
     residue, then the packed merge with K2, or with ``packed=False`` the
-    two-key merge); "auto" resolves to "gather" (the cost model's
-    strategy pick waits for its weights to be measured on the card).
-    "flat" is not ported yet (ROADMAP queue A item 3).
-    ``packed`` applies to "tiles". ``config``: a
-    ``outerspace_tpu_torch.config.Config`` whose ``waste_limit`` steers
-    the tile planner (None: the cost model's pick). Work runs on
-    ``device``; "cpu" runs each kernel's plain version."""
+    two-key merge); "flat" expands the whole symbolic plan at once, then
+    merges (``spgemm_padded``); "auto" takes the cost model's pick
+    (``sched.planner.choose_strategy``). A caller-pinned ``p_pad``
+    implies "flat" (tile and gather padding is structural) and is
+    refused with "tiles" or "gather". ``packed`` applies to "tiles" and
+    "flat". ``config``: a ``outerspace_tpu_torch.config.Config`` whose
+    ``waste_limit`` steers the tile planner (None: the cost model's
+    pick). Work runs on ``device``; "cpu" runs each kernel's plain
+    version."""
     from outerspace_tpu_torch.config import DEFAULT
 
-    if strategy == "flat":
-        raise NotImplementedError(
-            "strategy 'flat' is not ported yet: see ROADMAP.md, queue A, item 3"
-        )
-    if strategy not in ("auto", "gather", "tiles"):
+    if strategy not in ("auto", "gather", "tiles", "flat"):
         raise ValueError(f"unknown strategy {strategy!r}")
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"inner dimensions differ: {a.shape} @ {b.shape}")
     cfg = config if config is not None else DEFAULT
     a_csc = a if isinstance(a, CSC) else a.to_csc()
     b_csr = b if isinstance(b, CSR) else b.to_csr()
+    plan = expansion_plan(a_csc, b_csr)
+    if plan.expansion_size == 0:
+        return empty_csr(plan.m, plan.n)
+    if strategy == "auto":
+        from outerspace_tpu_torch.sched.planner import choose_strategy
+
+        strategy = "flat" if p_pad is not None else choose_strategy(a_csc, b_csr)
+    if strategy in ("tiles", "gather") and p_pad is not None:
+        raise ValueError(
+            "p_pad is only honored by the flat strategy; tile/gather "
+            "padding is structural (use strategy='flat' or drop p_pad)"
+        )
     if strategy == "tiles":
-        if expansion_plan(a_csc, b_csr).expansion_size == 0:
-            return empty_csr(a_csc.shape[0], b_csr.shape[1])
         tplan = plan_tiled_parts(a_csc, b_csr, waste_limit=cfg.waste_limit, device=device)
         return spgemm_padded_tiled_parts(tplan, packed=packed).to_csr()
-    from outerspace_tpu_torch.ops.gather_pipeline import spgemm_gather
+    if strategy == "gather":
+        from outerspace_tpu_torch.ops.gather_pipeline import spgemm_gather
 
-    return spgemm_gather(a_csc, b_csr, device=device)
+        return spgemm_gather(a_csc, b_csr, device=device)
+    return spgemm_padded(plan, p_pad, packed=packed, device=device).to_csr()
+
+
+def spgemm_coo(a, b, p_pad: int | None = None, device: str | torch.device = "cuda") -> COO:
+    """:func:`spgemm` as a COO; a ``p_pad`` runs the flat strategy."""
+    return spgemm(a, b, p_pad=p_pad, device=device).to_coo()

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc`` and its host planner core
+with ``g++``, and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exports plain C launchers (no PyTorch headers),
 so one ``nvcc`` call builds it in seconds. Libraries go to ``build/`` at
@@ -8,7 +9,8 @@ one ``nvcc`` per missing library, all together, and waits for every one.
 
 A :class:`CudaKernel` loads its library on first launch (building it if
 needed), checks the launcher's returned ``cudaError_t`` and counts its
-launches.
+launches. :func:`host_library` builds and loads a plain C++ source
+(``csrc/<name>.cpp``, no CUDA) the same way; the CPU has one too.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("gexpand", "scan", "expand", "spmm")
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+HOST_SOURCES = ("gplan",)
 
 
 def nvcc_path() -> str:
@@ -74,6 +78,43 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return reports
+
+
+def host_library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cpp`` lives."""
+    digest = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    digest.update(" ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Build ``csrc/<name>.cpp`` with the host's ``g++`` unless its
+    library exists; raises with the compiler's output if the build
+    fails."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        ["g++", *CXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode:
+        raise RuntimeError(f"g++ failed on {name}.cpp:\n{proc.stdout}")
+    os.replace(tmp, out)
+    return out
+
+
+_HOST_LIBRARIES: dict[str, ctypes.CDLL] = {}
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cpp``, built at first use."""
+    lib = _HOST_LIBRARIES.get(name)
+    if lib is None:
+        lib = _HOST_LIBRARIES[name] = ctypes.CDLL(str(build_host(name)))
+    return lib
 
 
 def tensor_ptr(t) -> ctypes.c_void_p:

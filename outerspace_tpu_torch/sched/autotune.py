@@ -1,17 +1,25 @@
-"""Cost-model autotuning: the tile waste limit per operand pair, from a
-per-element cost model over the operands' degree distributions (host
-numpy, no device work).
+"""Cost model of the SpGEMM strategies: the tile waste limit per operand
+pair and the strategy pick (tiles, gather or flat), from per-element
+weights over the operands' degree distributions (host numpy, no device
+work). A port of the JAX package's ``sched/autotune.py``.
 
-A copy of the JAX package's ``sched/autotune.py``. Its weights are the
-JAX planner's and are kept only so that both packages cut the same
-plans: ``plan_tiled`` takes its default waste limit from
+The weights are device times of this port's stages on an NVIDIA H100
+80GB HBM3 at a 700.00 W power limit, in ns per stream slot, measured by
+``chip_smoke.py`` (device-only CUDA events on rmat14_ef8 A²'s streams;
+``PERF.md`` §6):
+
+- ``GATHER_NS``: K1, the windowed-gather expand, per slot it writes;
+- ``SORT_NS``: the merge, ``torch.sort`` + K2, per merge-stream slot;
+- ``FLAT_NS``: the flat expand (``expand_partial_products`` and key
+  packing) per slot of the flat plan;
+- ``TILE_NS_BY_CLASS``: K3, the dense-tile expand, per padded slot of
+  each tile class (``TILE_NS`` is the (8, 128) class's).
+
+The model counts device work only: the host plan, staging and the fetch
+to CSR are outside it. ``plan_tiled`` takes its default waste limit from
 :func:`best_waste_limit`, and ``sched.planner.trim_split`` picks a
-trimmed row's tile class with :func:`tile_ns`. They are relative weights in the
-planner's own units, not times of any kernel of this port, and they are
-no measurement of the H100. Recalibrating them on the card is queued in
-ROADMAP.md (queue A, item 3), and with it the JAX package's strategy
-pick (tiles, gather or flat), which ``spgemm(strategy="auto")`` will
-read; until then "auto" means "gather".
+trimmed row's tile class with :func:`tile_ns`, so the port's plans follow
+these weights; the parity tests set the JAX package's weights first.
 """
 
 from __future__ import annotations
@@ -21,24 +29,28 @@ import numpy as np
 from outerspace_tpu_torch.formats.csr import CSC, CSR
 from outerspace_tpu_torch.sched.planner import TILE_A_CLASSES, TILE_B
 
-# Per-element weights of the JAX planner (see the module docstring).
-SORT_NS = 1.6
-TILE_NS = 0.22  # the (8, 128) anchor class
-GATHER_NS = 0.15
-FLAT_NS = 9.0
+# ns per slot (see the module docstring)
+SORT_NS = 0.0903714688040334
+GATHER_NS = 0.005728853562476825
+FLAT_NS = 0.2045143105533498
+TILE_NS_BY_CLASS = {
+    128: 0.00992838522506645,
+    32: 0.005228678408760364,
+    8: 0.005483773981915454,
+}
+TILE_NS = TILE_NS_BY_CLASS[8]  # the (8, 128) anchor class
 GATHER_MAX_NB = 256
 WASTE_GRID = (1.05, 1.1, 1.15, 1.25, 1.5, 2.0)
-
-# Per tile class, the weight the JAX planner's ``tile_ns`` gives when its
-# native event model is built: the anchor class keeps TILE_NS and the
-# taller classes scale by that model's step-overhead ratio. The JAX
-# package falls back to TILE_NS for every class without its native
-# library; the parity tests set this table to whatever it gives.
-TILE_NS_BY_CLASS = {
-    128: 0.01811236186785358,
-    32: 0.055839392602256156,
-    8: TILE_NS,
-}
+# The gather pipeline's merge stream per product: the subtile cuts'
+# padding and the parts' common length. A property of the plan (both
+# packages plan alike): 1.007-1.074 on the JAX package's A² suite,
+# 1.0129 on rmat14_ef8 and 1.0221 on er100k in the port (PERF.md §6).
+GATHER_FILL = 1.04
+# Tiles must beat gather by this modeled margin: the model leaves out
+# the parts' padding to a common merge length and a launch per (part,
+# class) table. On the card rmat14_ef8 modeled tiles 2% above gather
+# and measured them 17% above by the profiler's busy time (PERF.md §6).
+TILES_MARGIN = 1.15
 
 
 def tile_ns(tile_a: int) -> float:
@@ -128,15 +140,13 @@ def modeled_cost_ns(
     )
 
 
-def best_waste_limit(
-    a_csc: CSC, b_csr: CSR, waste_grid: tuple[float, ...] = WASTE_GRID
-) -> float:
-    """The waste limit of ``waste_grid`` with the least modeled cost
-    (the JAX package's ``autotune(...)[1]``)."""
+def _waste_costs(a_csc: CSC, b_csr: CSR, waste_grid: tuple[float, ...]):
+    """(na, nb, total products, gather_edges, b_mis, modeled cost per
+    waste limit of ``waste_grid``); the costs are None when there are no
+    products."""
     na = a_csc.major_nnz().astype(np.int64)
     nb = b_csr.major_nnz().astype(np.int64)
-    if int((na * nb).sum()) == 0:
-        return waste_grid[0]
+    total = int((na * nb).sum())
     # The tiled residue is gather-servable whenever its planner can pack
     # keys: globally (m·n ≤ 2³²) or in rebased row parts
     # (ops.spgemm.plan_tiled_parts).
@@ -147,8 +157,61 @@ def best_waste_limit(
         b_csr.shape[1] < 2**31 and mn <= _MAX_PARTS * 2**32
     )
     b_mis = np.asarray(b_csr.indptr)[:-1].astype(np.int64) % TILE_B
-    costs = {
-        wl: modeled_cost_ns(na, nb, wl, gather_edges=gather_edges, b_mis=b_mis)
-        for wl in waste_grid
-    }
-    return min(costs, key=costs.get)
+    costs = None
+    if total:
+        costs = {
+            wl: modeled_cost_ns(na, nb, wl, gather_edges=gather_edges, b_mis=b_mis)
+            for wl in waste_grid
+        }
+    return na, nb, total, gather_edges, b_mis, costs
+
+
+def best_waste_limit(
+    a_csc: CSC, b_csr: CSR, waste_grid: tuple[float, ...] = WASTE_GRID
+) -> float:
+    """The waste limit of ``waste_grid`` with the least modeled cost
+    (:func:`autotune`'s second value)."""
+    costs = _waste_costs(a_csc, b_csr, waste_grid)[-1]
+    return waste_grid[0] if costs is None else min(costs, key=costs.get)
+
+
+def strategy_costs(
+    a_csc: CSC, b_csr: CSR, waste_grid: tuple[float, ...] = WASTE_GRID
+) -> tuple[dict[str, float], float, int] | None:
+    """The modeled cost of each strategy, ns: ``({"tiles", "gather",
+    "flat"}: cost, best waste limit, padded tile stream at it)``, or
+    None for operands with no products."""
+    na, nb, total, gather_edges, b_mis, costs = _waste_costs(a_csc, b_csr, waste_grid)
+    if costs is None:
+        return None
+    wl_best = min(costs, key=costs.get)
+    padded_best = sum(
+        _class_totals(na, nb, wl_best, gather_edges=gather_edges, b_mis=b_mis)[0]
+    )
+    # Chunked ranges make every row gather-servable (any m·n via the
+    # row-split pipeline), so pure gather has no flat part.
+    return {
+        "tiles": costs[wl_best],
+        "gather": int(total * GATHER_FILL) * (GATHER_NS + SORT_NS),
+        "flat": total * (FLAT_NS + SORT_NS),
+    }, wl_best, padded_best
+
+
+def autotune(
+    a_csc: CSC, b_csr: CSR, waste_grid: tuple[float, ...] = WASTE_GRID
+) -> tuple[str, float]:
+    """Pick (strategy, waste_limit) by modeled cost: "tiles" (the hybrid
+    at the best waste limit), "gather" (pure windowed gather, row-split
+    packed keys) or "flat"."""
+    got = strategy_costs(a_csc, b_csr, waste_grid)
+    if got is None:
+        return "flat", waste_grid[0]
+    cost, wl_best, padded_best = got
+    # a hybrid with zero tile work degenerates to the gather pipeline:
+    # prefer the real thing (it also row-splits past the 2^32 key space)
+    if padded_best == 0 and cost["gather"] <= cost["tiles"]:
+        return "gather", wl_best
+    # near-tie band (TILES_MARGIN)
+    if cost["gather"] <= cost["tiles"] * TILES_MARGIN:
+        cost["tiles"] = float("inf")
+    return min(cost, key=cost.get), wl_best

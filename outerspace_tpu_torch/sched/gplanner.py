@@ -13,8 +13,9 @@ This planner cuts the element stream into subtiles subject to three
 monotone window constraints (products, B-span, A-span), packs 8 subtiles
 per group under super-window constraints, and stages the field-stacked
 arrays the kernel reads. The subtile cuts and group packing run the
-Python definitions (``_cut_subtiles``, ``_pack_groups``); the JAX
-package's native C++ core for them gives bit-identical plans.
+native C++ core (``csrc/gplan.cpp``, built with g++ at first use); the
+Python loops ``_cut_subtiles_loop`` / ``_pack_groups_loop`` are their
+definition, which the tests hold the core to bit for bit.
 """
 
 from __future__ import annotations
@@ -147,9 +148,55 @@ def slabbed_stream_len(ngroups: int) -> int:
     )
 
 
+def _gplan_library():
+    """The native planner core (``csrc/gplan.cpp``), built with g++ at
+    first use; a failed build raises."""
+    import ctypes
+
+    from outerspace_tpu_torch.runtime.build import host_library
+
+    lib = host_library("gplan")
+    ll, pll = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
+    lib.osp_plan_subtiles.argtypes = [pll, pll, pll, *[ll] * 6, pll, pll, pll]
+    lib.osp_plan_subtiles.restype = ll
+    lib.osp_pack_groups.argtypes = [pll, pll, *[ll] * 6, ctypes.POINTER(ctypes.c_int32)]
+    lib.osp_pack_groups.restype = ll
+    return lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    import ctypes
+
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
 def _cut_subtiles(cum, jb, jend, b_win: int):
     """Greedy product-space subtile cuts: (p0, owners, b_anchors) int64
-    arrays, one iteration per subtile (~P/1024)."""
+    arrays, by the native core (rolling pointers, O(nk + nsub)). Where a
+    plan would overflow the core's output capacity (the core returns
+    -1), :func:`_cut_subtiles_loop`, the definition, cuts it."""
+    import ctypes
+
+    nk = jb.shape[0]
+    # capacity covers every realistic plan (full subtiles + window cuts)
+    cap = int(cum[-1]) // SUB_P + 4 * nk + 1024
+    out = [np.empty(cap, np.int64) for _ in range(3)]
+    arrs = [np.ascontiguousarray(a, np.int64) for a in (cum, jb, jend)]
+    ll = ctypes.c_longlong
+    nsub = _gplan_library().osp_plan_subtiles(
+        *(_ptr(a, ll) for a in arrs), nk, b_win, A_WIN, SUB_P, _BLK, cap,
+        *(_ptr(a, ll) for a in out),
+    )
+    if nsub == -1:
+        return _cut_subtiles_loop(cum, jb, jend, b_win)
+    if nsub < 0:
+        raise ValueError(f"osp_plan_subtiles rejected its inputs ({nsub})")
+    return tuple(a[:nsub].copy() for a in out)
+
+
+def _cut_subtiles_loop(cum, jb, jend, b_win: int):
+    """The definition of :func:`_cut_subtiles`: one Python iteration per
+    subtile (~P/1024)."""
     nk = jb.shape[0]
     p_real = int(cum[-1])
     starts_p, owner_l, banchor_l = [], [], []
@@ -192,9 +239,28 @@ def _cut_subtiles(cum, jb, jend, b_win: int):
 
 def _pack_groups(a_blk, b_blk, b_win: int) -> list[list[int]]:
     """Pack consecutive subtiles into ≤``GROUP_SUBS`` groups sharing
-    super-windows anchored at each group's FIRST subtile; B anchors must
-    not dip below the first subtile's base (product-space cuts make them
-    locally non-monotone)."""
+    super-windows anchored at each group's FIRST subtile, by the native
+    core; :func:`_pack_groups_loop` is the definition."""
+    import ctypes
+
+    nsub = a_blk.shape[0]
+    if nsub == 0:
+        return []
+    gid = np.empty(nsub, np.int32)
+    ll = ctypes.c_longlong
+    ng = _gplan_library().osp_pack_groups(
+        _ptr(np.ascontiguousarray(a_blk, np.int64), ll),
+        _ptr(np.ascontiguousarray(b_blk, np.int64), ll),
+        nsub, b_win, A_WIN, GROUP_SUBS, SUPER_A, SUPER_B, _ptr(gid, ctypes.c_int32),
+    )
+    bounds = np.searchsorted(gid, np.arange(1, ng, dtype=np.int32))
+    return [list(g) for g in np.split(np.arange(nsub), bounds)]
+
+
+def _pack_groups_loop(a_blk, b_blk, b_win: int) -> list[list[int]]:
+    """The definition of :func:`_pack_groups`: B anchors must not dip
+    below the first subtile's base (product-space cuts make them locally
+    non-monotone)."""
     nsub = a_blk.shape[0]
     groups: list[list[int]] = []
     cur: list[int] = []

@@ -333,3 +333,13 @@ def plan_outer_classes(
         ejb = np.zeros(0, np.int64)
         elen = np.zeros(0, np.int64)
     return ClassPlan(classes, light_k, light_p, ek, ejb, elen)
+
+
+def choose_strategy(a_csc: CSC, b_csr: CSR) -> str:
+    """The expand strategy for these operands, by the cost model
+    (``sched.autotune.autotune``): "tiles" (dense-tile expand on heavy
+    k's beside a gather residue), "gather" (pure windowed gather with
+    row-split packed keys; any m·n) or "flat" (one flat expand)."""
+    from outerspace_tpu_torch.sched.autotune import autotune
+
+    return autotune(a_csc, b_csr)[0]

@@ -591,3 +591,104 @@ def test_sparse_models_on_card_match_dense(cuda, model_type, path, batch, per_ca
         want = dense(torch.from_numpy(x).to(cuda))[0]
     err = float((got - want).abs().max() / want.abs().max())
     assert err < 1e-5, err
+
+
+# ---- the flat strategy, compaction, the native planner, triangles ---------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def assert_same_csr(got, want):
+    np.testing.assert_array_equal(got.indptr, want.indptr)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_allclose(got.data, want.data, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", ["rmat10_ef8", "band2048_p5", "mesh2d_48"])
+def test_flat_on_card_equals_cpu(cuda, name):
+    from outerspace_tpu_torch.formats import read_mtx
+
+    a = read_mtx(os.path.join(REPO, "data", "mtx", f"{name}.mtx"))
+    before = scan.KERNEL.launches
+    got = spgemm(a, a, strategy="flat", device=cuda)
+    assert scan.KERNEL.launches == before + 1
+    assert_same_csr(got, spgemm(a, a, strategy="flat", device="cpu"))
+    assert_csr_allclose(got, spgemm_scipy(a, a), rtol=RTOL, atol=ATOL)
+
+
+def test_flat_on_card_twokey_corner_and_p_pad(cuda):
+    from outerspace_tpu_torch.ops.spgemm import spgemm_coo
+
+    a, b = big_shape_pair(seed=4)  # m·n > 2³²: the two-key merge
+    assert_same_csr(spgemm(a, b, strategy="flat", device=cuda),
+                    spgemm(a, b, strategy="flat", device="cpu"))
+    m = 65536  # m·n = 2³²: the corner's key is the sentinel's pattern
+    a = COO((m, 4), [m - 1, m - 1, 3], [0, 1, 2], [1.5, 2.0, 3.0])
+    b = COO((4, m), [0, 1, 2], [m - 1, m - 1, 7], [2.0, 0.5, 1.0])
+    for p_pad in (None, 3, 4, 5000):
+        got = spgemm(a, b, strategy="flat", p_pad=p_pad, device=cuda)
+        assert_csr_allclose(got, spgemm_scipy(a, b), rtol=RTOL, atol=ATOL)
+    c = spgemm_coo(a, b, p_pad=4096, device=cuda)
+    assert c.col.tolist() == [7, m - 1]
+
+
+@pytest.mark.parametrize("strategy", ["gather", "tiles", "flat"])
+def test_to_csr_on_card_equals_the_host_route(cuda, strategy):
+    import importlib
+
+    from outerspace_tpu_torch.formats import CSR
+    from outerspace_tpu_torch.ops import gather_pipeline as gp
+
+    tsp = importlib.import_module("outerspace_tpu_torch.ops.spgemm")
+    g = rmat(11, edge_factor=8, seed=3)
+    a_csc, b_csr = g.to_csc(), g.to_csr()
+    if strategy == "gather":
+        merged = gp.spgemm_gather_padded(gp.plan_spgemm_gather(a_csc, b_csr, device=cuda))
+    elif strategy == "tiles":
+        merged = tsp.spgemm_padded_tiled_parts(
+            tsp.plan_tiled_parts(a_csc, b_csr, nparts=2, budget=10.0, device=cuda))
+    else:
+        merged = tsp.spgemm_padded(tsp.expansion_plan(a_csc, b_csr), device=cuda)
+    got = merged.to_csr()
+    valid = merged.valid.cpu().numpy()
+    rows = merged.rows.cpu().numpy()[valid]
+    indptr = np.zeros(g.shape[0] + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=g.shape[0]), out=indptr[1:])
+    want = CSR(merged.shape, indptr, merged.cols.cpu().numpy()[valid],
+               merged.vals.cpu().numpy()[valid])
+    assert got.indptr.dtype == np.int64
+    np.testing.assert_array_equal(got.indptr, want.indptr)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.data.view(np.int32), want.data.view(np.int32))
+    assert_csr_allclose(got, spgemm_scipy(g, g), rtol=RTOL, atol=ATOL)
+
+
+def test_native_planner_builds_and_plans_on_the_card_machine(cuda, monkeypatch):
+    from outerspace_tpu_torch.runtime import build
+    from outerspace_tpu_torch.sched import gplanner
+
+    assert build.build_host("gplan").exists()
+    g = rmat(11, edge_factor=8, seed=2)
+    native = plan_spgemm_gather(g.to_csc(), g.to_csr(), device=cuda)
+    monkeypatch.setattr(gplanner, "_cut_subtiles", gplanner._cut_subtiles_loop)
+    monkeypatch.setattr(gplanner, "_pack_groups", gplanner._pack_groups_loop)
+    loops = plan_spgemm_gather(g.to_csc(), g.to_csr(), device=cuda)
+    assert len(native.parts) == len(loops.parts)
+    for p, q in zip(native.parts, loops.parts):
+        for k in p.dev:
+            assert torch.equal(p.dev[k], q.dev[k]), k
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_triangles_on_card_equal_scipy(cuda, seed):
+    from outerspace_tpu_torch.ops import graph
+
+    # a hub pair whose edge has 600 common neighbours (A² entries past
+    # bf16's exact integers) and an R-MAT graph
+    for g in (torch_cases.hub_pair_graph(COO, seed=seed), rmat(10, edge_factor=8, seed=seed + 4)):
+        want = graph.triangle_count(g, backend="scipy")
+        before = scan.KERNEL.launches
+        assert graph.triangle_count(g, strategy="sparse", device=cuda) == want
+        assert scan.KERNEL.launches == before + 1
+        assert graph.triangle_count(g, strategy="dense", device=cuda) == want
+        assert graph.triangle_count(g, device=cuda) == want

@@ -1,7 +1,9 @@
 """The port stands alone: with ``jax`` and the JAX package blocked from
 import, every module of ``outerspace_tpu_torch`` imports, the SpGEMM
-main path runs on the CPU and a ``SparseMLP`` serves one forward with the
-committed weights; and no source of the port names either."""
+main path runs on the CPU (gather, tiles, flat and "auto", with the
+native planner core), triangles are counted by both routes and a
+``SparseMLP`` serves one forward with the committed weights; and no
+source of the port names either."""
 
 import os
 import subprocess
@@ -49,6 +51,19 @@ assert plan_tiled(t.to_csc(), t.to_csr(), waste_limit=2.0, device="cpu").class_t
 for packed in (None, False):
     got = spgemm(t, t, strategy="tiles", packed=packed, device="cpu")
     assert_csr_allclose(got, spgemm_scipy(t, t), rtol=1e-5, atol=1e-6)
+# the flat strategy, the strategy pick and the native planner core
+from outerspace_tpu_torch.sched import gplanner
+from outerspace_tpu_torch.sched.planner import choose_strategy
+assert choose_strategy(t.to_csc(), t.to_csr()) in ("gather", "tiles", "flat")
+assert gplanner._gplan_library().osp_plan_subtiles
+for strategy in ("flat", "auto"):
+    got = spgemm(t, t, strategy=strategy, device="cpu")
+    assert_csr_allclose(got, spgemm_scipy(t, t), rtol=1e-5, atol=1e-6)
+# triangle counting by both routes
+from outerspace_tpu_torch.ops.graph import triangle_count
+tri = triangle_count(a, backend="scipy")
+assert tri > 0 and all(triangle_count(a, strategy=s, device="cpu") == tri
+                       for s in ("dense", "sparse"))
 # sparse-NN inference: the committed pickles load without JAX
 import numpy as np
 from outerspace_tpu_torch.convert import load_params
@@ -73,21 +88,21 @@ def test_port_imports_and_runs_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("isolated")
-    assert int(out.stdout.split()[1]) >= 31
+    assert int(out.stdout.split()[1]) >= 33
 
 
 def port_sources():
     root = os.path.join(REPO, "outerspace_tpu_torch")
     for d, _, files in os.walk(root):
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
 
 
 def test_port_sources_name_no_jax():
     sources = list(port_sources())
-    assert len(sources) >= 37
+    assert len(sources) >= 40
     for path in sources:
         with open(path, encoding="utf-8") as f:
             text = f.read()

@@ -2,11 +2,11 @@
 package's, field for field and array for array.
 
 Both planners pick tile classes and the waste limit with the cost
-model's per-class weights. The JAX package computes them with its
-native event model when that library is built and falls back to one
-flat weight otherwise; the port keeps a table. Every test here first
-sets the port's table to the JAX package's live ``tile_ns`` values, so
-the plans must agree either way.
+model's weights. The port's are times measured on the card; the JAX
+package's per-class weights come from its native event model when that
+library is built and from one flat weight otherwise. Every test here
+first sets the port's weights to the JAX package's (its live
+``tile_ns`` per class), so the plans must agree either way.
 """
 
 import functools
@@ -37,9 +37,7 @@ tsp = importlib.import_module("outerspace_tpu_torch.ops.spgemm")
 
 @pytest.fixture(autouse=True)
 def jax_weights(monkeypatch):
-    monkeypatch.setattr(
-        tat, "TILE_NS_BY_CLASS", {ta: jat.tile_ns(ta) for ta in tpl.TILE_A_CLASSES}
-    )
+    torch_cases.set_jax_cost_weights(monkeypatch, jat, tat, tpl.TILE_A_CLASSES)
 
 
 def port_operands(a, b):
@@ -160,8 +158,11 @@ def test_autotune_equal(case, operand_pair):
 
 
 def test_cost_model_constants_equal():
+    # the weights equal under the fixture; the rest of the model is shared
     for f in ("SORT_NS", "TILE_NS", "GATHER_NS", "FLAT_NS", "GATHER_MAX_NB", "WASTE_GRID"):
         assert getattr(jat, f) == getattr(tat, f), f
+    assert {ta: tat.tile_ns(ta) for ta in tpl.TILE_A_CLASSES} == {
+        ta: jat.tile_ns(ta) for ta in tpl.TILE_A_CLASSES}
     assert tpl.TILE_A_CLASSES == jpl.TILE_A_CLASSES and tpl.TILE_B == jpl.TILE_B
 
 

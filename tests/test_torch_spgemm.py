@@ -100,8 +100,10 @@ def test_spgemm_strategies_and_empty():
     t = spgemm(ta, tb, strategy="tiles", device="cpu")
     np.testing.assert_array_equal(a.indptr, t.indptr)
     np.testing.assert_array_equal(a.indices, t.indices)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spgemm(ta, tb, strategy="flat", device="cpu")
+    f = spgemm(ta, tb, strategy="flat", device="cpu")
+    np.testing.assert_array_equal(a.indptr, f.indptr)
+    np.testing.assert_array_equal(a.indices, f.indices)
+    np.testing.assert_allclose(a.data, f.data, rtol=RTOL)
     with pytest.raises(ValueError):
         spgemm(ta, tb, strategy="bogus", device="cpu")
     empty = TCOO((5, 3), [], [], [])

@@ -9,6 +9,9 @@ kernels in interpret mode) and vs scipy.
   indptr and indices exact; values within rtol 1e-5 (run sums are taken
   in another order), for packed None, True and False, row parts, rebased
   parts and an unsplit m·n > 2³² plan that runs the flat residue and K4.
+
+Every test sets the port's cost-model weights to the JAX package's
+first, so both packages cut the same plans.
 """
 
 import functools
@@ -22,12 +25,15 @@ import torch
 from outerspace_tpu.config import Config as JConfig
 from outerspace_tpu.formats import COO, rmat
 from outerspace_tpu.ops.symbolic import expansion_plan_subset as j_subset
+from outerspace_tpu.sched import autotune as jat
 from outerspace_tpu_torch.config import Config as TConfig
 from outerspace_tpu_torch.convert import csc_from_arrays, csr_from_arrays, tiled_plan_from_arrays
 from outerspace_tpu_torch.formats import COO as TCOO
 from outerspace_tpu_torch.ops import assert_csr_allclose, spgemm, spgemm_scipy
 from outerspace_tpu_torch.ops.kernels import expand as texp
 from outerspace_tpu_torch.ops.symbolic import expansion_plan_subset as t_subset
+from outerspace_tpu_torch.sched import autotune as tat
+from outerspace_tpu_torch.sched.planner import TILE_A_CLASSES
 
 import torch_cases  # tests/ is on sys.path under pytest
 
@@ -37,6 +43,11 @@ dense_blocks = functools.partial(torch_cases.dense_blocks, COO)
 jsp = importlib.import_module("outerspace_tpu.ops.spgemm")
 tsp = importlib.import_module("outerspace_tpu_torch.ops.spgemm")
 RTOL, ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture(autouse=True)
+def jax_weights(monkeypatch):
+    torch_cases.set_jax_cost_weights(monkeypatch, jat, tat, TILE_A_CLASSES)
 
 
 def port(a, b):
@@ -215,8 +226,8 @@ def test_empty_product_and_strategy_checks():
     b = TCOO((5, 4), [0, 4], [1, 3], [1.0, 1.0])  # A's columns meet empty B rows
     got = spgemm(a, b, strategy="tiles", device="cpu")
     assert got.nnz == 0 and got.shape == (6, 4) and got.indptr.shape == (7,)
-    with pytest.raises(NotImplementedError):
-        spgemm(a, b, strategy="flat", device="cpu")
+    flat = spgemm(a, b, strategy="flat", device="cpu")
+    assert flat.nnz == 0 and flat.shape == (6, 4) and flat.indptr.shape == (7,)
     with pytest.raises(ValueError):
         spgemm(a, b, strategy="nope", device="cpu")
     for fn in (spgemm, tsp.plan_tiled, tsp.plan_tiled_parts):

@@ -102,3 +102,28 @@ def k1_reads_before_the_packs(h):
     a = live & shallow & (tab[:, :, 0] == 0) & (a8 == 0) & (tab[:, :, 6] < 0)
     b = live & (tab[:, :, 1] < 0) & (b8 == 0)
     return bool(a.any()), bool(b.any())
+
+
+def set_jax_cost_weights(monkeypatch, jat, tat, tile_classes):
+    """Set the port's cost-model weights (``tat``: its ``sched.autotune``)
+    to the JAX package's (``jat``), the per-class tile weights to its live
+    ``tile_ns``, so that both packages pick the same plans and strategies.
+    The port's own weights are the card's."""
+    for name in ("SORT_NS", "TILE_NS", "GATHER_NS", "FLAT_NS"):
+        monkeypatch.setattr(tat, name, getattr(jat, name))
+    monkeypatch.setattr(tat, "TILE_NS_BY_CLASS", {ta: jat.tile_ns(ta) for ta in tile_classes})
+
+
+def hub_pair_graph(coo, n=700, spokes=600, seed=0):
+    """Two adjacent hubs sharing ``spokes`` neighbours (degree > 256, and
+    an edge whose two ends have ``spokes`` common neighbours, so A² has
+    an entry past bf16's exact integers at an edge), beside a sparse
+    random graph on the other vertices."""
+    rng = np.random.default_rng(seed)
+    rows = [0] + [0] * spokes + [1] * spokes
+    cols = [1] + list(range(2, 2 + spokes)) * 2
+    r = rng.integers(2, n, size=3 * n)
+    c = rng.integers(2, n, size=3 * n)
+    rows = np.concatenate([rows, r])
+    cols = np.concatenate([cols, c])
+    return coo((n, n), rows, cols, np.ones(rows.shape[0], np.float32))
