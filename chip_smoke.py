@@ -21,6 +21,13 @@ checking every result exactly against scipy:
 - triangle counting on rmat(13, edge_factor=8, seed=4) by the dense
   route, the sparse route (K3, K1, sort, K2, bitmap sum) and "auto",
   each count equal to scipy's;
+- Markov clustering on mcl_rmat14_4iter (rmat(14, edge_factor=8,
+  seed=7), 4 iterations): cold, warm and cached ``mcl_run``, the exact
+  fallbacks and a tiled first squaring, each against scipy's MCL with
+  the cluster sets equal; a warm run's launches (the first squaring's
+  K1 / K2, then K2 once plus twice per loop iteration) and host reads
+  (at most 2) counted; K2 held to its plain version on the loop's
+  streams;
 - sparse-NN inference: ``SparseMLP`` (MLP1w 784-1000-1000-10, pruned to
   1%) at batch 1024 and ``SparseLeNet`` (pruned LeNet) at batch 256, with
   the committed trained weights, each serving four requests through K5
@@ -61,8 +68,11 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 VAL_RTOL, VAL_ATOL = 1e-5, 1e-6  # summation order differs from the oracle
 NN_REL = 1e-5  # NN output vs the dense model, relative to its max |y|
 K5_REL = 1e-6  # K5 vs its plain version, relative to max |y|
-WEIGHTS = Path(__file__).resolve().parent / "data" / "saved_weights"
+ROOT = Path(__file__).resolve().parent
+WEIGHTS = ROOT / "data" / "saved_weights"
 MLP_BATCH, LENET_BATCH, REQUESTS = 1024, 256, 4
+MCL_ITERS = 4
+MCL_RTOL, MCL_ATOL = 5e-4, 1e-5  # the JAX package's MCL tolerance (tests/test_chain.py)
 # device ms (profiler) of the kernels' earlier designs on an NVIDIA H100
 # 80GB HBM3 at 700 W, printed beside this run's for comparison
 K5_BEFORE_MS = {"MLP1w": "0.3551-0.3603", "LeNet": "0.1444-0.1485"}
@@ -202,9 +212,10 @@ _FAMILIES = (("K1", "::gexpand_kernel"), ("K2", "::scan_tile_kernel"),
 def _profile(torch, fn):
     """Device activity over one call of ``fn`` (after a warm-up call),
     from torch.profiler's CUPTI trace: ({kernel: [ms, launches]} with the
-    port's kernels by name and everything else as "other", busy ms, span
-    ms from the first device activity's start to the last one's end), or
-    None when the trace holds no device activity."""
+    port's kernels by name, the sort kernels as "torch.sort" and
+    everything else as "other", busy ms, span ms from the first device
+    activity's start to the last one's end, {name: [ms, launches]} of the
+    "other" kernels), or None when the trace holds no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -216,28 +227,40 @@ def _profile(torch, fn):
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         return None
-    by = {}
-    for e in dev:
-        name = next((k for k, frag in _FAMILIES if frag in e.name), "other")
-        entry = by.setdefault(name, [0.0, 0])
-        entry[0] += e.time_range.elapsed_us() / 1e3
+    by, others = {}, {}
+
+    def add(table, key, ms):
+        entry = table.setdefault(key, [0.0, 0])
+        entry[0] += ms
         entry[1] += 1
+
+    for e in dev:
+        name = next((k for k, frag in _FAMILIES if frag in e.name),
+                    "torch.sort" if "sort" in e.name.lower() else "other")
+        add(by, name, e.time_range.elapsed_us() / 1e3)
+        if name == "other":
+            add(others, e.name, e.time_range.elapsed_us() / 1e3)
     busy = sum(ms for ms, _ in by.values())
     span = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3
-    return by, busy, span
+    return by, busy, span, others
 
 
-def _profile_line(torch, label, fn) -> dict:
-    """Prints the device activity over one call of ``fn``; returns the
-    device ms by kernel (empty when nothing was recorded)."""
+def _profile_line(torch, label, fn, top: int = 0) -> dict:
+    """Prints the device activity over one call of ``fn`` (with the
+    ``top`` costliest "other" kernels by name); returns the device ms by
+    kernel (empty when nothing was recorded)."""
     got = _profile(torch, fn)
     if got is None:
         print(f"{label} (profiler): no device activity recorded; not measured")
         return {}
-    by, busy, span = got
+    by, busy, span, others = got
     parts = ", ".join(f"{k} {ms:.4f} ms in {n}" for k, (ms, n) in sorted(by.items()))
     print(f"{label} (profiler): device busy {busy:.4f} ms of a {span:.4f} ms span "
           f"(idle {100 * (1 - busy / span):.1f}%); {parts}")
+    if top:
+        costly = sorted(others.items(), key=lambda kv: -kv[1][0])[:top]
+        print("  its costliest other kernels: " + "; ".join(
+            f"{name[:90]} {ms:.4f} ms in {n}" for name, (ms, n) in costly))
     return {k: ms for k, (ms, _) in by.items()}
 
 
@@ -324,6 +347,323 @@ def _dense_w(torch, meta, blocks, k_pad):
         rb = torch.arange(nrb, device=blocks.device)[ok]
         w[rb, :, m[ok, s, 0]] += blocks[rb, m[ok, s, 2]]
     return w.reshape(nrb * bm, k_pad)
+
+def _csr_equal(np, got, want, label: str) -> None:
+    """nnz, indptr and indices exact, values within the MCL tolerance."""
+    if got.nnz != want.nnz:
+        raise RuntimeError(f"{label}: nnz {got.nnz}, scipy {want.nnz}")
+    for name in ("indptr", "indices"):
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            raise RuntimeError(f"{label}: {name} differ from scipy's")
+    if not np.allclose(got.data, want.data, rtol=MCL_RTOL, atol=MCL_ATOL):
+        err = float(np.abs(got.data - want.data).max())
+        raise RuntimeError(f"{label}: values differ from scipy's (max |err| {err:.3e})")
+
+
+def _stage1_launches(tplan) -> dict:
+    """K1, K2 and K3 launches of one first squaring over ``tplan``: per
+    gather part K1 and K2; per tiled part K2, K1 on a residue and K3 per
+    class table."""
+    from outerspace_tpu_torch.ops.gather_pipeline import GatherPipelinePlan
+
+    if isinstance(tplan, GatherPipelinePlan):
+        return {"K1": len(tplan.parts), "K2": len(tplan.parts), "K3": 0}
+    parts = [tp for _, _, tp in tplan.parts] if hasattr(tplan, "parts") else [tplan]
+    return {"K1": sum(1 for tp in parts if tp.gather_ngroups), "K2": len(parts),
+            "K3": sum(len(tp.class_tables()) for tp in parts)}
+
+
+def _k1_calls(tplan) -> list:
+    """K1's calls over a product plan, as ``(args, b_win)``: one per
+    gather part, or one per tiled part with a gather residue."""
+    from outerspace_tpu_torch.ops.gather_pipeline import GatherPipelinePlan
+    from outerspace_tpu_torch.ops.spgemm import TiledPartsPlan
+
+    def args(d):
+        return d["bases"], d["table"], d["a_pack"], d["b_pack"], d["group_bits"]
+
+    if isinstance(tplan, GatherPipelinePlan):
+        return [(args(p.dev), p.b_win) for p in tplan.parts]
+    parts = tplan.parts if isinstance(tplan, TiledPartsPlan) else [(0, 0, tplan)]
+    return [(args(tp.device_args["gather"]), tp.gather_b_win)
+            for _, _, tp in parts if tp.gather_ngroups]
+
+
+def _k1_equal_plain(torch, gexpand, calls, label: str) -> float:
+    """K1 against its plain version on ``calls``, bit for bit; returns
+    the values' max |err|."""
+    err = 0.0
+    for args, b_win in calls:
+        key, val = gexpand.expand_gather(*args, b_win=b_win)
+        key_p, val_p = gexpand.expand_gather_plain(*args, b_win=b_win)
+        torch.cuda.synchronize()
+        if not (torch.equal(key, key_p)
+                and torch.equal(val.view(torch.int32), val_p.view(torch.int32))):
+            raise RuntimeError(f"K1 disagrees with its plain version on {label} (want "
+                               f"bit-equal): {int((key != key_p).sum())} keys differ")
+        err = max(err, float((val - val_p).abs().max()))
+    return err
+
+
+def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
+    """Markov clustering on mcl_rmat14_4iter (the JAX bench's
+    ``bench_mcl``: rmat(14, edge_factor=8, seed=7) with self loops and
+    |val|, duplicates summed, columns normalised; 4 iterations): cold and
+    warm ``mcl_run`` exact against scipy's MCL, cluster sets equal; the
+    warm runs on the fast path, with their K1 / K2 launches and host
+    reads counted; the stepwise and fused fallbacks, a forced fallback,
+    a tiled first squaring (K3) and ``square_device`` exact; K1 and K3
+    held to their plain versions on the first squaring's plans and K2 on
+    the loop's streams; times. Returns the K1 and K2
+    launches of one warm run and the warm run itself (``"run"``), which
+    ``main`` traces with the profiler last."""
+    import importlib
+    import os
+    import warnings
+
+    from outerspace_tpu_torch.formats import rmat
+    from outerspace_tpu_torch.ops import chain, graph
+    from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan
+    from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_scipy
+    from outerspace_tpu_torch.ops.spgemm import MergedCOO, plan_tiled_parts
+
+    t0 = time.perf_counter()
+    # the run's own sizing cache, emptied first: the first runs are cold
+    cache = ROOT / "build" / "chip_smoke_sizing_cache.json"
+    os.environ["OUTERSPACE_SIZING_CACHE"] = str(cache)
+    g = rmat(14, edge_factor=8, seed=7)
+    flow = graph._mcl_setup(g)
+    n = flow.shape[0]
+    scipy_ms = []
+    for _ in range(3):  # the oracle, timed
+        ta = time.perf_counter()
+        want = graph.markov_cluster(g, iters=MCL_ITERS, backend="scipy")
+        scipy_ms.append((time.perf_counter() - ta) * 1e3)
+    scipy_ms = statistics.median(scipy_ms)
+    want_clusters = {tuple(sorted(c.tolist())) for c in graph.mcl_clusters(want)}
+    _phase("mcl scipy oracle", t0)
+
+    def check(merged, label):
+        got = merged.to_csr()
+        _csr_equal(np, got, want, label)
+        if {tuple(sorted(c.tolist())) for c in graph.mcl_clusters(got)} != want_clusters:
+            raise RuntimeError(f"{label}: cluster sets differ from scipy's")
+        return got
+
+    def timed(fn):
+        ta = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - ta) * 1e3, out
+
+    prepare = [timed(lambda: graph.mcl_prepare(flow, iters=MCL_ITERS, device=dev)) for _ in range(3)]
+    fresh = prepare[-1][1]  # no budgets yet
+
+    def unsized(**kw):
+        return {k: v for k, v in fresh.items() if k not in ("sizing_key", "flow")} | {"flow": flow} | kw
+
+    # the sweep's P_i and nnz_i, caught from the first mcl_size call
+    sweeps = []
+    real_sweep = graph._host_mcl_sizing_full
+
+    def sweep_caught(*args, **kw):
+        sweeps.append(real_sweep(*args, **kw))
+        return sweeps[-1]
+
+    size_ms = []
+    graph._host_mcl_sizing_full = sweep_caught
+    try:
+        for _ in range(3):
+            p = unsized()
+            size_ms.append(timed(lambda: graph.mcl_size(p))[0])
+    finally:
+        graph._host_mcl_sizing_full = real_sweep
+    sweep = sweeps[0]
+    cold_ms = []
+    for _ in range(3):
+        cache.unlink(missing_ok=True)
+        prep = unsized(sizing_key=fresh["sizing_key"])
+        ms, out = timed(lambda: graph.mcl_run(prep))
+        cold_ms.append(ms)
+        check(out, "cold mcl_run")
+    if prep.get("sizing_cached") or not cache.exists():
+        raise RuntimeError("the cold run did not size and store its budgets")
+    budgets = dict(prep["ran_with"])
+    print(f"mcl_rmat14_4iter: n {n}, flow nnz {flow.nnz}; sweep P_i {sweep[0]}, nnz_i {sweep[1]}; "
+          f"budgets {json.dumps(budgets)}; stage-1 plan {type(prep['tplan']).__name__} with "
+          f"{len(getattr(prep['tplan'], 'parts', [0]))} parts")
+
+    # warm runs on the same prep: the fast path, launches and host reads counted
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = graph.mcl_run(prep)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = {name: k.launches for name, k in kernels.items()}
+    syncs = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+    stage1 = _stage1_launches(prep["tplan"])
+    want_counts = dict(stage1, K2=stage1["K2"] + 1 + 2 * (MCL_ITERS - 1), K4=0, K5=0)
+    if counts != want_counts:
+        raise RuntimeError(f"warm mcl_run launches {counts}, want {want_counts}")
+    if len(syncs) > 2:
+        raise RuntimeError(f"warm mcl_run read the device {len(syncs)} times, want <= 2: {syncs}")
+    warm_ms = []
+    for _ in range(3):
+        ms, out = timed(lambda: graph.mcl_run(prep))
+        warm_ms.append(ms)
+        if prep["ran_with"] != budgets or prep["p_pad"] != budgets["p_pad"]:
+            raise RuntimeError(f"a warm mcl_run left the fast path: budgets {prep['ran_with']}")
+    fetch_ms = _host_ms(lambda: out.to_csr())
+    got = check(out, "warm mcl_run")
+    warm_cached = graph.mcl_prepare(flow, iters=MCL_ITERS, device=dev)
+    check(graph.mcl_run(warm_cached), "mcl_run from the sizing cache")
+    if not warm_cached.get("sizing_cached") or warm_cached["ran_with"] != budgets:
+        raise RuntimeError("a new prep did not take its budgets from the sizing cache")
+    print(f"mcl_rmat14_4iter warm mcl_run: final nnz {got.nnz} == scipy, structure exact, values "
+          f"within rtol {MCL_RTOL} atol {MCL_ATOL}, {len(want_clusters)} cluster sets equal; "
+          f"launches per run {counts} (the first squaring's {stage1}, then K2 once for its "
+          f"column sums and twice per loop iteration); host reads {len(syncs)} (`ok`; nnz is "
+          f"read by to_csr)")
+    _phase("mcl main path", t0)
+
+    # the exact fallbacks and the tiled first squaring
+    t1 = time.perf_counter()
+    sq = chain._stage1_squaring(prep["tplan"])
+    v1, valid1, nnz1 = chain.inflate_device(sq.rows, sq.cols, sq.vals, sq.valid, m=n,
+                                            inflation=2.0, threshold=1e-4)
+    flow1 = MergedCOO(sq.shape, sq.rows, sq.cols, v1, valid1, nnz1)
+    f1 = flow1.to_csr()
+    assert_csr_allclose(chain.square_device(flow1).to_csr(), spgemm_scipy(f1, f1),
+                        rtol=VAL_RTOL, atol=VAL_ATOL)
+    for name, fn in (("markov_cluster_device_fused", chain.markov_cluster_device_fused),
+                     ("markov_cluster_device", chain.markov_cluster_device)):
+        check(fn(flow1, iters=MCL_ITERS - 1), f"{name} from the stage-1 flow")
+    forced = unsized(**(budgets | {"elem_pad": 4096, "p_pads": None, "blk_caps": None}))
+    check(graph.mcl_run(forced), "mcl_run with elem_pad 4096")
+    if forced["ran_with"]["elem_pad"] != 4096 or forced["elem_pad"] != 8192:
+        raise RuntimeError("the forced run did not fall back and double its budgets")
+    for k in kernels.values():
+        k.launches = 0
+    # the sized budgets (the caps were set for the gather plan's stream)
+    tiled = unsized(**(budgets | {"blk_caps": None}),
+                    tplan=plan_tiled_parts(flow.to_csc(), flow, device=dev))
+    check(graph.mcl_run(tiled), "mcl_run on a tiled first squaring")
+    torch.cuda.synchronize()
+    tiled_counts = {name: k.launches for name, k in kernels.items()}
+    if not tiled_counts["K3"]:
+        raise RuntimeError(f"the tiled first squaring did not launch K3: {tiled_counts}")
+    # K1 and K3 on the first squarings' own inputs, against plain
+    k1_mcl = {"gather plan": _k1_calls(prep["tplan"]), "tiled residue": _k1_calls(tiled["tplan"])}
+    k1_mcl_err = max(_k1_equal_plain(torch, gexpand, calls, f"the MCL {label}")
+                     for label, calls in k1_mcl.items())
+    tparts = getattr(tiled["tplan"], "parts", [(0, 0, tiled["tplan"])])
+    k3_mcl_err = 0.0
+    for _, _, tp in tparts:
+        for sched, d in tp.class_tables():
+            args = tuple(d[k] for k in ("tasks", "a_rows_t", "a_vals_t", "b_cols_blk", "b_vals_blk"))
+            got_k3 = expand.expand_tiles_packed(*args, tile_a=sched.tile_a, n_cols=tp.n)
+            want_k3 = expand.expand_tiles_packed_plain(*args, tile_a=sched.tile_a, n_cols=tp.n)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_k3[0], want_k3[0])
+                    and torch.equal(got_k3[1].view(torch.int32), want_k3[1].view(torch.int32))):
+                raise RuntimeError(f"K3 disagrees with its plain version on the MCL tiled first "
+                                   f"squaring (tile_a={sched.tile_a}; want bit-equal)")
+            k3_mcl_err = max(k3_mcl_err, float((got_k3[1] - want_k3[1]).abs().max()))
+    print("K1 and K3 == plain bit for bit on the MCL first squarings: "
+          + ", ".join(f"K1 {label} ({len(calls)} calls)" for label, calls in k1_mcl.items())
+          + f", K3 on {tiled_counts['K3']} tables (values max |err| K1 {k1_mcl_err:.3e}, "
+          f"K3 {k3_mcl_err:.3e})")
+    print(f"mcl fallbacks exact: square_device of the stage-1 flow == scipy; fused and stepwise "
+          f"chains from it, elem_pad 4096 (ok false, stepwise, budgets doubled) == scipy's MCL; "
+          f"tiled first squaring ({len(tparts)} parts, launches "
+          f"{tiled_counts}, fast "
+          f"path {tiled['ran_with']['p_pad'] == tiled['p_pad']}) == scipy's MCL")
+    _phase("mcl fallbacks and K1 / K3 check", t1)
+
+    # K2 on the loop's streams: caught from one warm run, against plain
+    t1 = time.perf_counter()
+    calls = []
+    # the module (the package's ``spgemm`` name is the function)
+    spgemm_mod = importlib.import_module("outerspace_tpu_torch.ops.spgemm")
+    real = spgemm_mod.merge_epilogue_scan
+
+    def catch(key, vals, pad_count, *, n_cols, sentinel_row):
+        calls.append((key.clone(), vals.clone(), pad_count, n_cols, sentinel_row))
+        return real(key, vals, pad_count, n_cols=n_cols, sentinel_row=sentinel_row)
+
+    spgemm_mod.merge_epilogue_scan = catch
+    try:
+        graph.mcl_run(prep)
+    finally:
+        spgemm_mod.merge_epilogue_scan = real
+    loop = calls[stage1["K2"] + 1:]
+    streams = {"loop merge (n_cols = n)": loop[0], "column sums (n_cols = 1)": loop[1]}
+    if loop[0][3] != n or loop[1][3] != 1:
+        raise RuntimeError(f"unexpected K2 call order: {[c[3] for c in calls]}")
+    k2_rows = {}
+    for label, (key, vals, pad, n_cols, sentinel) in streams.items():
+        got_k2 = scan.merge_epilogue_scan(key, vals, pad, n_cols=n_cols, sentinel_row=sentinel)
+        want_k2 = scan.merge_epilogue_plain(key, vals, pad, n_cols=n_cols, sentinel_row=sentinel)
+        torch.cuda.synchronize()
+        for i, nm in ((0, "rows"), (1, "cols"), (3, "valid"), (4, "nnz")):
+            if not torch.equal(got_k2[i], want_k2[i]):
+                raise RuntimeError(f"K2 {nm} disagree with plain on the MCL {label} stream")
+        if not torch.allclose(got_k2[2], want_k2[2], rtol=VAL_RTOL, atol=VAL_ATOL):
+            raise RuntimeError(f"K2 values disagree with plain on the MCL {label} stream")
+        # the longest run of real keys (u < n·n_cols), past the tail's
+        _, run_len = torch.unique_consecutive(key[key.long() + 2**31 < n * n_cols], return_counts=True)
+        ms = _device_ms(torch, lambda: scan.merge_epilogue_scan(
+            key, vals, pad, n_cols=n_cols, sentinel_row=sentinel), spin)
+        bound = _bound(key.numel() * (4 + 4 + 4 + 4 + 4 + 1) + 4, key.numel())
+        k2_rows[label] = (key.numel(), int(run_len.max()), ms, bound[0],
+                          float((got_k2[2] - want_k2[2]).abs().max()))
+    print("K2 on the MCL streams (device-only CUDA events; == plain, structure exact): " + "; ".join(
+        f"{label}: {slots} slots, longest run {run}, {ms:.4f} ms, bound {bound:.4f} ms "
+        f"({100 * bound / ms:.1f}%), max |err| {err:.3e}"
+        for label, (slots, run, ms, bound, err) in k2_rows.items()))
+    _phase("mcl K2 check", t1)
+
+    # times: host clock around work that ends in a synchronise, median of 3
+    t1 = time.perf_counter()
+    med = statistics.median
+    print(f"mcl_rmat14_4iter host ms (median of 3; samples): mcl_prepare {med(x[0] for x in prepare):.3f} "
+          f"({', '.join(f'{x[0]:.3f}' for x in prepare)}), mcl_size {med(size_ms):.3f} "
+          f"({', '.join(f'{x:.3f}' for x in size_ms)}), cold mcl_run {med(cold_ms):.3f} "
+          f"({', '.join(f'{x:.3f}' for x in cold_ms)}), warm mcl_run {med(warm_ms):.3f} "
+          f"({', '.join(f'{x:.3f}' for x in warm_ms)}), fetch to CSR {fetch_ms:.3f}; "
+          f"scipy's MCL {scipy_ms:.3f} ({scipy_ms / med(warm_ms):.2f}x the warm run's time)")
+    mcl_spin = _spin_cycles(torch, 200.0)
+
+    def whole(join, iters=MCL_ITERS - 1):
+        p_pads, caps = budgets["p_pads"], budgets["blk_caps"]
+        return lambda: chain.mcl_whole_traced(
+            prep["tplan"], p_pad=budgets["p_pad"], nnz_pad=budgets["nnz_pad"], m=n, n_cols=n,
+            iters=iters, inflation=2.0, threshold=1e-4, elem_pad=budgets["elem_pad"],
+            p_pads=tuple(p_pads[:iters]) if p_pads else None,
+            blk_caps=tuple(caps[:iters + 1]) if caps else None, join=join)
+
+    joins = {j: _device_ms(torch, whole(j), mcl_spin, reps=3) for j in ("fill", "gather", "auto")}
+    first = _device_ms(torch, lambda: chain._stage1_squaring(prep["tplan"]), mcl_spin, reps=3)
+    no_loop = _device_ms(torch, whole("auto", iters=0), mcl_spin, reps=3)
+    print("mcl_rmat14_4iter one warm run's device ms by join (device-only CUDA events, median of "
+          "3): " + ", ".join(f"{j} {ms:.4f}" for j, ms in joins.items())
+          + f" (auto takes {chain.loop_join(budgets['elem_pad'], n, dev)})"
+          + f"; split: the first squaring {first:.4f}, its prune, compaction and normalisation "
+          f"with the final sort {no_loop - first:.4f} (a run with no loop iteration, "
+          f"{no_loop:.4f}, less the squaring), the {MCL_ITERS - 1} loop iterations "
+          f"{joins['fill'] - no_loop:.4f} (fill) / {joins['gather'] - no_loop:.4f} (gather)")
+    _phase("mcl timing", t1)
+    # the profiler's trace of a warm run is taken after the other phases'
+    # traces: after a trace this large, the next traces in the process
+    # dropped device activity
+    return {"K1": counts["K1"], "K2": counts["K2"], "run": lambda: graph.mcl_run(prep),
+            "K1 err": k1_mcl_err, "K3 err": k3_mcl_err}
 
 
 def main() -> int:
@@ -420,7 +760,7 @@ def main() -> int:
 
     # ---- the flat strategy on the fixtures the JAX bench forces onto it,
     # one of them with a pinned p_pad (an odd length past P)
-    mtx = Path(__file__).resolve().parent / "data" / "mtx"
+    mtx = ROOT / "data" / "mtx"
     for fname in ("rmat10_ef8", "band2048_p5", "mesh2d_48"):
         a = read_mtx(str(mtx / f"{fname}.mtx"))
         want = spgemm_scipy(a, a)
@@ -456,6 +796,9 @@ def main() -> int:
         print(f"triangles rmat13 {route}{f' (picks {tri_pick})' if route == 'auto' else ''}: "
               f"{got} == scipy; launches {counts}")
     _phase("triangles", t0)
+
+    # ---- Markov clustering: mcl_rmat14_4iter, K1 and K2 on its path
+    mcl_launches = _mcl_phase(torch, np, dev, kernels, _spin_cycles(torch))
 
     # ---- sparse-NN inference: the trained weights, four requests per model
     t0 = time.perf_counter()
@@ -574,34 +917,16 @@ def main() -> int:
             tables.append((sched, args, tp.n, tp.m))
     # K1 on the other streams the main paths ran: er100k's gather parts
     # and the tiled plans' residues (rmat14_ef8 and er100k)
-    def residues(tp_plan):
-        parts = tp_plan.parts if isinstance(tp_plan, TiledPartsPlan) else [(0, 0, tp_plan)]
-        return [((g["bases"], g["table"], g["a_pack"], g["b_pack"], g["group_bits"]),
-                 tp.gather_b_win)
-                for _, _, tp in parts if tp.gather_ngroups
-                for g in (tp.device_args["gather"],)]
-
     a2_csc, a2_csr = a2.to_csc(), a2.to_csr()
     tplan2 = plan_tiled_parts(a2_csc, a2_csr, device=dev)
-    k1_tiles_in = residues(tplan)
-    k1_other = {"er100k gather": [((d["bases"], d["table"], d["a_pack"], d["b_pack"],
-                                    d["group_bits"]), p.b_win)
-                                  for p in plan_spgemm_gather(a2_csc, a2_csr, device=dev).parts
-                                  for d in (p.dev,)],
+    k1_tiles_in = _k1_calls(tplan)
+    k1_other = {"er100k gather": _k1_calls(plan_spgemm_gather(a2_csc, a2_csr, device=dev)),
                 "rmat14_ef8 tiles residue": k1_tiles_in,
-                "er100k tiles residue": residues(tplan2)}
+                "er100k tiles residue": _k1_calls(tplan2)}
     for label, calls in k1_other.items():
         if not calls:
             raise RuntimeError(f"{label}: no K1 call to check")
-        for args, b_win in calls:
-            key, val = gexpand.expand_gather(*args, b_win=b_win)
-            key_p, val_p = gexpand.expand_gather_plain(*args, b_win=b_win)
-            torch.cuda.synchronize()
-            if not (torch.equal(key, key_p)
-                    and torch.equal(val.view(torch.int32), val_p.view(torch.int32))):
-                raise RuntimeError(f"K1 disagrees with its plain version on {label} (want "
-                                   f"bit-equal): {int((key != key_p).sum())} keys differ")
-            k1_err = max(k1_err, float((val - val_p).abs().max()))
+        k1_err = max(k1_err, _k1_equal_plain(torch, gexpand, calls, label))
     print("K1 == plain bit for bit on " + ", ".join(
         f"{label} ({len(calls)} calls)" for label, calls in k1_other.items()))
     del tplan2
@@ -934,6 +1259,8 @@ def main() -> int:
               f"{alone['K2']:.4f}, carry pass {alone.get('K2 carry', 0.0):.4f}): "
               f"{100 * k2_bound / k2_dev:.1f}% of its {k2_bound:.4f} ms bound (the per-slot "
               f"design it replaced: {K2_BEFORE_MS} ms on the same card model)")
+    if not _profile_line(torch, "mcl_rmat14_4iter warm mcl_run", mcl_launches["run"], top=10):
+        _profile_line(torch, "mcl_rmat14_4iter warm mcl_run, again", mcl_launches["run"], top=10)
     _phase("timing", t0)
     _phase("total (torch import to here)", t_start)
 
@@ -943,6 +1270,9 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 "library_ms": library_ms}
 
+    for k in ("K1", "K2"):  # the MCL path's warm run launches them too
+        launches[k] += mcl_launches[k]
+    k1_err, k3_err = max(k1_err, mcl_launches["K1 err"]), max(k3_err, mcl_launches["K3 err"])
     record = {"kernels": [
         row("K1 gexpand (windowed-gather expand)", "cuda",
             "outerspace_tpu_torch/csrc/gexpand.cu", "outerspace_tpu/ops/pallas/gexpand.py:60",

@@ -1,8 +1,8 @@
-"""Triangle counting on SpGEMM: the triangle half of the JAX package's
-``ops/graph.py`` (Markov clustering follows with the device chains).
+"""Graph workloads on SpGEMM: the JAX package's ``ops/graph.py``,
+triangle counting and Markov clustering.
 
-tri = Σᵢⱼ (A² ∘ A) / 6 for a symmetric 0/1 adjacency without self-loops.
-Two routes on the card:
+Triangles: tri = Σᵢⱼ (A² ∘ A) / 6 for a symmetric 0/1 adjacency without
+self-loops. Two routes on the card:
 
 - **dense**: the adjacency scattered into an n_pad × n_pad int8 matrix on
   the card, multiplied block of rows by block of rows (``torch._int_mm``,
@@ -15,6 +15,15 @@ Two routes on the card:
 
 "auto" picks by a cost model whose two weights were measured on the card
 (:data:`DENSE_NS_PER_NPAD3`, :data:`SPARSE_NS_PER_PRODUCT`).
+
+Markov clustering (:func:`markov_cluster`): square the column-stochastic
+flow, raise it to the inflation power, prune, normalise the columns,
+repeat. On the card it is staged (:func:`mcl_prepare`, :func:`mcl_run`):
+the first squaring over a host plan (K1 or K3, sort, K2), then the loop
+of ``ops.chain`` on buffers sized by a host sweep in scipy
+(:func:`mcl_size`) and kept in the sizing cache. One host read (the
+device ``ok`` flag) per run; if a budget did not hold, the exact
+stepwise chain runs and the budgets double.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ import torch
 
 from outerspace_tpu_torch.formats.coo import COO
 from outerspace_tpu_torch.formats.csr import CSR
+from outerspace_tpu_torch.ops.chain import CAP_BLOCK
+from outerspace_tpu_torch.ops.symbolic import round_up_bucket
 
 # The selector's weights (ns), from ``chip_smoke.py``'s triangles phase
 # on rmat(13, edge_factor=8, seed=4): each route's time, from the
@@ -206,3 +217,384 @@ def _tri_sparse_total(prep) -> torch.Tensor:
     tplan, bitmap, _, n_words = prep
     merged = spgemm_padded_tiled(tplan)
     return _tri_sum(merged.rows, merged.cols, merged.vals, merged.valid, bitmap, n_words)
+
+
+# --------------------------------------------------------------------------
+# Markov clustering
+# --------------------------------------------------------------------------
+
+
+def _mcl_setup(coo: COO) -> CSR:
+    """MCL preamble shared by every backend: self loops (standard MCL),
+    absolute values, duplicates summed, columns normalised."""
+    n = coo.shape[0]
+    if coo.shape[0] != coo.shape[1]:
+        raise ValueError(f"adjacency must be square, got {coo.shape}")
+    m = COO(
+        coo.shape,
+        np.concatenate([coo.row, np.arange(n, dtype=coo.row.dtype)]),
+        np.concatenate([coo.col, np.arange(n, dtype=coo.col.dtype)]),
+        np.concatenate([np.abs(coo.val), np.ones(n, dtype=np.float32)]),
+    ).deduplicated()
+    return _col_normalize(m.to_csr())
+
+
+def _mcl_inflate_prune(expanded: CSR, inflation: float, prune_threshold: float) -> CSR:
+    """One MCL inflation step on the host (elementwise power, prune,
+    column normalisation), shared by the host-loop backends."""
+    c = expanded.to_coo()
+    v = np.power(np.maximum(c.val, 0.0), inflation)
+    keep = v > prune_threshold
+    return _col_normalize(COO(c.shape, c.row[keep], c.col[keep], v[keep]).to_csr())
+
+
+def markov_cluster(
+    adj: COO | CSR,
+    expansion: int = 2,
+    inflation: float = 2.0,
+    iters: int = 10,
+    prune_threshold: float = 1e-4,
+    backend: str = "torch",
+    device: str | torch.device = "cuda",
+    report: dict | None = None,
+) -> CSR:
+    """Markov clustering: alternate expansion (the flow to the power
+    ``expansion``) and inflation (elementwise power, prune, column
+    normalisation). Returns the final flow; clusters are read from it by
+    :func:`mcl_clusters`.
+
+    ``backend="torch"`` runs on ``device`` ("cpu" runs each kernel's
+    plain version): the staged chain (:func:`mcl_prepare`,
+    :func:`mcl_run`) for ``expansion=2`` and n² < 2³², otherwise a host
+    loop over ``spgemm``, which stops early once the flow stops changing.
+    ``backend="scipy"`` is that host loop over scipy's product (the
+    reference). ``report`` (staged chain only) receives the budgets the
+    run used and whether it took the fast path."""
+    if backend not in ("torch", "scipy"):
+        raise ValueError(f"unknown backend {backend!r}")
+    coo = adj.to_coo() if not isinstance(adj, COO) else adj
+    n = coo.shape[0]
+    flow = _mcl_setup(coo)
+    if iters <= 0:
+        return flow
+    if backend == "torch" and expansion == 2 and n * n < 2**32:
+        prep = mcl_prepare(flow, inflation=inflation, iters=iters,
+                           prune_threshold=prune_threshold, device=device)
+        out = mcl_run(prep)
+        if report is not None:
+            # the budgets this run used (a fallback doubles them for the
+            # next run; the stepwise chain it ran has no such budgets)
+            budgets = prep["ran_with"]
+            fast = budgets["p_pad"] == prep["p_pad"]
+            report.update(budgets, iters=iters, fast_path=fast)
+            if not fast:
+                report["p_pad"] = None
+        return out.to_csr()
+    from outerspace_tpu_torch.ops.reference import spgemm_scipy
+    from outerspace_tpu_torch.ops.spgemm import spgemm
+
+    def mult(a, b):
+        if backend == "torch":
+            return spgemm(a, b, device=device)
+        return spgemm_scipy(a, b)
+
+    for _ in range(iters):
+        expanded = flow
+        for _ in range(expansion - 1):
+            expanded = mult(expanded, flow)
+        new_flow = _mcl_inflate_prune(expanded, inflation, prune_threshold)
+        if _converged(flow, new_flow):
+            return new_flow
+        flow = new_flow
+    return flow
+
+
+def mcl_prepare(flow: CSR, inflation: float = 2.0, iters: int = 10,
+                prune_threshold: float = 1e-4, device: str | torch.device = "cuda") -> dict:
+    """Stage the chain on ``device``: the first squaring's host plan, for
+    the pipeline the cost model picks for the flow (the windowed-gather
+    plan for "gather", the tiled row parts otherwise), and the sizing
+    cache's key. Returns the ``prep`` dict :func:`mcl_run` takes."""
+    from outerspace_tpu_torch.ops.gather_pipeline import plan_spgemm_gather
+    from outerspace_tpu_torch.ops.spgemm import plan_tiled_parts
+    from outerspace_tpu_torch.sched.planner import choose_strategy
+    from outerspace_tpu_torch.sched.sizing_cache import workload_key
+
+    n = flow.shape[0]
+    if flow.shape[0] != flow.shape[1] or n * n >= 2**32:
+        raise ValueError(f"the staged MCL needs a square flow with n^2 < 2^32, got {flow.shape}")
+    if iters < 1:
+        raise ValueError("mcl_prepare stages >= 1 iteration; iters=0 is a no-op")
+    a_csc = flow.to_csc()
+    if choose_strategy(a_csc, flow) == "gather":
+        tplan = plan_spgemm_gather(a_csc, flow, device=device)
+    else:
+        tplan = plan_tiled_parts(a_csc, flow, device=device)
+    sizing_key = workload_key(
+        (np.asarray(flow.indptr), np.asarray(flow.indices)),
+        ("mcl-torch", n, float(inflation), int(iters), float(prune_threshold)),
+    )
+    return {
+        "tplan": tplan,
+        "n": n,
+        "inflation": float(inflation),
+        "iters": int(iters),
+        "threshold": float(prune_threshold),
+        "sizing_key": sizing_key,
+        # for the host sizing sweep; dropped once the budgets are known
+        "flow": flow,
+    }
+
+
+def _host_mcl_sizing(flow_scipy, inflation, iters, threshold):
+    """Per-squaring product counts P_i and surviving nnz of the MCL
+    recurrence, run once in scipy with the device loop's semantics
+    (square, prune on the unnormalised powered values, normalise)."""
+    p_list, nnz_list, _ = _host_mcl_sizing_full(flow_scipy, inflation, iters, threshold)
+    return p_list, nnz_list
+
+
+def _host_mcl_sizing_full(flow_scipy, inflation, iters, threshold, stage1_layout=None):
+    """:func:`_host_mcl_sizing` plus per-squaring compaction block caps.
+
+    Each squaring's merged stream is its product multiset sorted by key,
+    so a survivor's slot is the exclusive cumulative sum of the
+    multiplicities before it: the first squaring in row-major order per
+    part (``stage1_layout`` = ``[(row_lo, row_hi, merge_pad), ...]``,
+    sentinel tails per part), the loop squarings in CSC order. ``caps[i]``
+    is the most survivors any ``CAP_BLOCK``-slot block of squaring ``i``'s
+    stream holds (0 where the layout is unknown)."""
+    import scipy.sparse as sp
+
+    flow = flow_scipy.tocsr()
+    n = flow.shape[0]
+    p_list, nnz_list, caps = [], [], []
+    for it in range(iters):
+        rownnz = np.diff(flow.indptr)
+        coo = flow.tocoo()
+        p_list.append(int(rownnz[coo.col].sum()))
+        sqm = (flow @ flow).tocsr()
+        sqm.sort_indices()
+        # product multiplicities on the same pattern: how many k's feed
+        # each output (r, c)
+        pat = sp.csr_matrix((np.ones(flow.nnz, np.int64), flow.indices, flow.indptr),
+                            shape=flow.shape)
+        cnt = (pat @ pat).tocsr()
+        cnt.sort_indices()
+        keep_r = np.power(np.maximum(sqm.data, 0.0), inflation) > threshold
+        if it == 0 and stage1_layout is not None:
+            # per part, survivors' ranks among the part's sorted products;
+            # blocks over the concatenated stream
+            bc = np.zeros(1, np.int64)
+            off = 0
+            ok_layout = True
+            for lo, hi, mp in stage1_layout:
+                e0, e1 = cnt.indptr[lo], cnt.indptr[hi]
+                mult = cnt.data[e0:e1]
+                pos = (np.concatenate([[0], np.cumsum(mult[:-1])]) if e1 > e0
+                       else np.zeros(0, np.int64))
+                if e1 > e0 and pos[-1] + mult[-1] > mp:
+                    ok_layout = False  # the layout does not match: no cap
+                    break
+                gpos = off + pos[keep_r[e0:e1]]
+                if gpos.size:
+                    b = np.bincount(gpos // CAP_BLOCK)
+                    if b.size > bc.size:
+                        b[: bc.size] += bc
+                        bc = b
+                    else:
+                        bc[: b.size] += b
+                off += mp
+            caps.append(int(bc.max()) if ok_layout else 0)
+        elif it == 0:
+            caps.append(0)
+        else:
+            # a loop squaring: the stream sorted by CSC key (col·m + row)
+            sqc = sqm.tocsc()
+            sqc.sort_indices()
+            cc = cnt.tocsc()
+            cc.sort_indices()
+            mult = cc.data
+            pos = (np.concatenate([[0], np.cumsum(mult[:-1])]) if mult.size
+                   else np.zeros(0, np.int64))
+            keep_c = np.power(np.maximum(sqc.data, 0.0), inflation) > threshold
+            gpos = pos[keep_c]
+            caps.append(int(np.bincount(gpos // CAP_BLOCK).max()) if gpos.size else 0)
+        sq = sqm.tocoo()
+        vp = np.power(np.maximum(sq.data, 0.0), inflation)
+        keep = vp > threshold
+        r, c, v = sq.row[keep], sq.col[keep], vp[keep]
+        nnz_list.append(int(keep.sum()))
+        cs = np.zeros(n)
+        np.add.at(cs, c, v)
+        cs[cs == 0] = 1.0
+        flow = sp.coo_matrix((v / cs[c], (r, c)), shape=(n, n)).tocsr()
+    return p_list, nnz_list, caps
+
+
+def _stage1_stream_layout(tplan):
+    """``[(row_lo, row_hi, merge_pad), ...]`` of the first squaring's
+    merged stream per part, in concatenation order, or None when the plan
+    has no common per-part stream length (the host sweep then sets no
+    cap for the first squaring)."""
+    from outerspace_tpu_torch.ops.gather_pipeline import GatherPipelinePlan
+    from outerspace_tpu_torch.ops.spgemm import TiledPartsPlan
+
+    if isinstance(tplan, GatherPipelinePlan):
+        return [(p.row_base, p.row_base + p.span, p.merge_pad) for p in tplan.parts]
+    if isinstance(tplan, TiledPartsPlan) and tplan.merge_pad:
+        if not (tplan.rebased or tplan.m * tplan.n <= 2**32):
+            return None  # the two-key merge: another stream shape
+        return [(lo, hi, tplan.merge_pad) for lo, hi, _ in tplan.parts]
+    return None
+
+
+def _blk_caps_with_margin(caps):
+    """×1.5 + 64 over the host's exact per-block survivor maxima,
+    rounded up to 128 and capped at the block size (room for the
+    float32-against-float64 prune boundary; ``ok`` still guards). 0 stays
+    0 (no bound for that squaring)."""
+    return tuple(min(CAP_BLOCK, -(-(int(1.5 * c) + 64) // 128) * 128) if c else 0 for c in caps)
+
+
+def mcl_size(prep: dict) -> None:
+    """The host sizing sweep of a staged MCL (scipy): the exact products
+    P_i of every squaring, the survivors of every iteration and the
+    per-squaring block caps set the loop's budgets, each with a ×1.5
+    margin: ``elem_pad`` (element slots), ``nnz_pad`` (the output),
+    ``p_pads`` (one product budget per loop squaring, at most three
+    distinct sizes, each rounded up), ``p_pad`` (their maximum) and
+    ``blk_caps``. Fills ``prep`` and stores the budgets in the sizing
+    cache under ``prep["sizing_key"]``."""
+    from outerspace_tpu_torch.sched import sizing_cache
+
+    iters = prep["iters"]
+    p_list, nnz_list, raw_caps = _host_mcl_sizing_full(
+        prep["flow"].to_scipy().tocsr(), prep["inflation"], iters, prep["threshold"],
+        stage1_layout=_stage1_stream_layout(prep["tplan"]),
+    )
+    blk_caps = _blk_caps_with_margin(raw_caps)
+    elem_pad = round_up_bucket(max(int(1.5 * max(nnz_list)) + 1024, 4096), min_size=4096)
+    nnz_pad = round_up_bucket(max(int(1.5 * nnz_list[-1]) + 256, 1024), min_size=1024)
+    p_pads = tuple(round_up_bucket(max(int(1.5 * p) + 4096, elem_pad, 4096), min_size=4096)
+                   for p in p_list[1:])
+    # at most three distinct sizes, each entry rounded UP to a kept size
+    # (budgets only grow; ok still guards each)
+    distinct = sorted(set(p_pads), reverse=True)
+    if len(distinct) > 3:
+        kept = {distinct[0], distinct[len(distinct) // 2], distinct[-1]}
+        p_pads = tuple(min(s for s in kept if s >= p) for p in p_pads)
+    prep["p_pad"] = max(p_pads) if p_pads else elem_pad
+    prep["nnz_pad"], prep["elem_pad"] = nnz_pad, elem_pad
+    prep["p_pads"] = p_pads or None
+    prep["blk_caps"] = blk_caps if any(blk_caps) else None
+    prep.pop("flow", None)
+    if "sizing_key" in prep:
+        sizing_cache.store(prep["sizing_key"], _budgets(prep))
+
+
+def _budgets(prep: dict) -> dict:
+    """The budgets of ``prep`` as the sizing cache stores them (a caller
+    may set only ``p_pad`` and ``nnz_pad``)."""
+    pps, bcs = prep.get("p_pads"), prep.get("blk_caps")
+    return {"p_pad": prep["p_pad"], "nnz_pad": prep["nnz_pad"], "elem_pad": prep.get("elem_pad"),
+            "p_pads": list(pps) if pps else None, "blk_caps": list(bcs) if bcs else None}
+
+
+def _from_cache(prep: dict) -> bool:
+    """Fill ``prep``'s budgets from the sizing cache; False on a miss.
+    Schedules of the wrong length (a torn or edited entry) are dropped:
+    a bad entry costs speed, never a wrong result."""
+    from outerspace_tpu_torch.sched import sizing_cache
+
+    cached = sizing_cache.lookup(prep["sizing_key"])
+    if not cached or "p_pad" not in cached or "nnz_pad" not in cached:
+        return False
+    iters = prep["iters"]
+    prep["p_pad"], prep["nnz_pad"] = cached["p_pad"], cached["nnz_pad"]
+    prep["elem_pad"] = cached.get(
+        "elem_pad", round_up_bucket(max(4 * cached["nnz_pad"], 4096), min_size=4096))
+    pps, bcs = cached.get("p_pads"), cached.get("blk_caps")
+    prep["p_pads"] = tuple(pps) if pps and len(pps) == iters - 1 else None
+    prep["blk_caps"] = tuple(bcs) if bcs and len(bcs) == iters else None
+    prep["sizing_cached"] = True
+    prep.pop("flow", None)
+    return True
+
+
+def mcl_run(prep: dict):
+    """Run the staged MCL: the first squaring, inflation, the loop and the
+    final sort (``ops.chain.mcl_whole_traced``), queued with no host read,
+    then one read of ``ok``. Returns the flow as a ``MergedCOO``.
+
+    The budgets come from ``prep``, else the sizing cache, else the host
+    sweep (:func:`mcl_size`). If ``ok`` is false, the exact stepwise
+    chain runs from the first squaring's flow, and the budgets double
+    (single-size, no caps) for the next run and in the cache."""
+    from outerspace_tpu_torch.ops.chain import (
+        _stage1_squaring,
+        inflate_device,
+        markov_cluster_device_fused,
+        mcl_whole_traced,
+    )
+    from outerspace_tpu_torch.ops.spgemm import MergedCOO
+    from outerspace_tpu_torch.sched import sizing_cache
+
+    tplan, n = prep["tplan"], prep["n"]
+    inflation, iters, threshold = prep["inflation"], prep["iters"], prep["threshold"]
+    if "p_pad" not in prep and not ("sizing_key" in prep and _from_cache(prep)):
+        mcl_size(prep)
+    prep["ran_with"] = _budgets(prep)
+    r, c, v, nnz, ok = mcl_whole_traced(
+        tplan, p_pad=prep["p_pad"], nnz_pad=prep["nnz_pad"], m=n, n_cols=n,
+        iters=iters - 1, inflation=inflation, threshold=threshold,
+        elem_pad=prep.get("elem_pad"), p_pads=prep.get("p_pads"), blk_caps=prep.get("blk_caps"),
+    )
+    if bool(ok):
+        return MergedCOO((n, n), r, c, v, torch.arange(r.shape[0], device=r.device) < nnz, nnz)
+    sq = _stage1_squaring(tplan)
+    v1, valid1, nnz1 = inflate_device(sq.rows, sq.cols, sq.vals, sq.valid, m=n,
+                                      inflation=inflation, threshold=threshold)
+    out = markov_cluster_device_fused(MergedCOO(sq.shape, sq.rows, sq.cols, v1, valid1, nnz1),
+                                      inflation=inflation, iters=iters - 1,
+                                      prune_threshold=threshold)
+    prep["p_pad"] = round_up_bucket(prep["p_pad"] * 2, min_size=4096)
+    prep["nnz_pad"] = round_up_bucket(max(prep["nnz_pad"] * 2, int(out.nnz)), min_size=1024)
+    prep["elem_pad"] = round_up_bucket(prep.get("elem_pad", prep["nnz_pad"]) * 2, min_size=4096)
+    prep["p_pads"] = prep["blk_caps"] = None
+    prep.pop("sizing_cached", None)
+    if "sizing_key" in prep:
+        sizing_cache.store(prep["sizing_key"], _budgets(prep))
+    return out
+
+
+def mcl_clusters(flow: CSR) -> list[np.ndarray]:
+    """Clusters of a final flow: each attractor row (nonzero diagonal)
+    and the columns attached to it, each member set once."""
+    s = flow.to_scipy().tocsr()
+    attractors = np.nonzero(s.diagonal() > 1e-6)[0]
+    clusters = []
+    seen = set()
+    for a in attractors:
+        lo, hi = s.indptr[a], s.indptr[a + 1]
+        members = s.indices[lo:hi][s.data[lo:hi] != 0]  # the row's stored nonzeros
+        key = tuple(sorted(members.tolist()))
+        if key not in seen and len(members):
+            seen.add(key)
+            clusters.append(np.asarray(members))
+    return clusters
+
+
+def _col_normalize(m: CSR) -> CSR:
+    s = m.to_scipy().tocsc()
+    sums = np.asarray(s.sum(axis=0)).ravel()
+    sums[sums == 0] = 1.0
+    d = s.multiply(1.0 / sums).tocsr()
+    d.sort_indices()
+    return CSR.from_scipy(d.astype(np.float32))
+
+
+def _converged(a: CSR, b: CSR, tol: float = 1e-6) -> bool:
+    if a.nnz != b.nnz or a.shape != b.shape:
+        return False
+    return abs(a.to_scipy() - b.to_scipy()).max() <= tol

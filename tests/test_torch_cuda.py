@@ -692,3 +692,128 @@ def test_triangles_on_card_equal_scipy(cuda, seed):
         assert scan.KERNEL.launches == before + 1
         assert graph.triangle_count(g, strategy="dense", device=cuda) == want
         assert graph.triangle_count(g, device=cuda) == want
+
+
+# ---- Markov clustering: the device chain, K2's column sums, mcl_run
+
+
+def column_key_stream(cols, seed, m=20_000):
+    """A loop stream as the chain forms it: sorted CSC keys (``cols``
+    nonzeros per column, rows at random), its biased column keys (the
+    sentinel tail's included) and values exact in float32 in any order."""
+    from outerspace_tpu_torch.ops import chain
+
+    rng = np.random.default_rng(seed)
+    col = np.repeat(np.arange(len(cols)), cols)
+    row = np.concatenate([np.sort(rng.choice(m, size=c, replace=False)) for c in cols])
+    key = np.full(col.size + 777, I32_MAX, np.int32)
+    key[: col.size] = col * np.int64(m) + row - 2**31
+    vals = np.zeros(key.size, np.float32)
+    vals[: col.size] = rng.integers(1, 64, size=col.size) / 8
+    kt = torch.from_numpy(key)
+    return kt, chain._col_keys(kt, m), torch.from_numpy(vals), m
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k2_column_sums_with_runs_past_three_tiles(cuda, seed):
+    """K2 with ``n_cols=1`` on column-key streams whose columns run
+    longer than three 1,024-slot tiles, ``pad_count`` the stream length
+    (as the loop passes it), equal to its plain version; the column
+    normalisation built on it equal to the CPU's."""
+    from outerspace_tpu_torch.ops import chain
+
+    rng = np.random.default_rng(seed)
+    cols = list(rng.integers(0, 40, size=300)) + [3 * T + 100, 5 * T + 1, T, 1, 0, 4 * T - 1]
+    key, kcol, vals, m = column_key_stream(rng.permutation(cols), seed)
+    got = k2_matches_plain(kcol.to(cuda), vals.to(cuda), kcol.numel(), 1, sentinel_row=m)
+    assert int(got[4]) == sum(c > 0 for c in cols) + 1  # + the tail's run
+    starts = chain._column_starts(key, m)
+    want = chain._csc_colnorm_sorted(kcol, vals, m, starts)
+    on_card = chain._csc_colnorm_sorted(kcol.to(cuda), vals.to(cuda), m, starts.to(cuda))
+    assert torch.equal(on_card.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("join", ["fill", "gather", "auto"])
+def test_mcl_iteration_on_card_equals_cpu(cuda, join):
+    """One loop iteration on the card equals the CPU's; "auto" takes
+    gather on the card and fill on the CPU, with the same result."""
+    from outerspace_tpu_torch.ops import chain, graph
+
+    flow = graph._mcl_setup(rmat(10, edge_factor=8, seed=3)).to_coo()
+    n = flow.shape[0]
+    key, val = chain._to_csc_state(
+        torch.from_numpy(flow.row.astype(np.int32)), torch.from_numpy(flow.col.astype(np.int32)),
+        torch.from_numpy(flow.val), torch.ones(flow.nnz, dtype=torch.bool), p_pad=1 << 17, m=n)
+    kw = dict(p_pad=1 << 21, elem_pad=1 << 17, m=n, inflation=2.0, threshold=1e-4, blk_cap=8192,
+              join=join)
+
+    def step(dev):
+        k, v = key.to(dev), val.to(dev)
+        s = (k, v, chain._column_starts(k, n), torch.ones((), dtype=torch.bool, device=dev))
+        return [x.cpu() for x in chain._mcl_iteration(s, **kw)]
+
+    want, got = step("cpu"), step(cuda)
+    assert bool(got[3]) and bool(want[3])
+    for i in (0, 2):
+        assert torch.equal(got[i], want[i])
+    torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
+
+
+def mcl_equal(got, want):
+    assert got.nnz == want.nnz
+    np.testing.assert_array_equal(got.indptr, want.indptr)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_allclose(got.data, want.data, rtol=5e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("make", [lambda: erdos_renyi(120, 120, 0.04, seed=55),
+                                  lambda: rmat(10, edge_factor=8, seed=11)], ids=["er120", "rmat10"])
+def test_markov_cluster_on_card_equals_scipy(cuda, make, tmp_path, monkeypatch):
+    from outerspace_tpu_torch.ops import graph
+
+    monkeypatch.setenv("OUTERSPACE_SIZING_CACHE", str(tmp_path / "c.json"))
+    g = make()
+    want = graph.markov_cluster(g, iters=4, backend="scipy")
+    report = {}
+    got = graph.markov_cluster(g, iters=4, device=cuda, report=report)
+    mcl_equal(got, want)
+    assert report["fast_path"]
+    assert [sorted(c) for c in graph.mcl_clusters(got)] == [sorted(c) for c in graph.mcl_clusters(want)]
+
+
+def test_mcl_run_cold_then_warm_on_card(cuda, tmp_path, monkeypatch):
+    """A cold run (the sweep), warm runs on the same prep and from the
+    cache: exact, K1 once per stage-1 part, K2 once per part + 1 + 2 per
+    loop iteration, at most two host reads in ``mcl_run`` (it reads
+    ``ok``); an element budget too small falls back, exactly."""
+    import warnings
+
+    from outerspace_tpu_torch.ops import graph
+
+    monkeypatch.setenv("OUTERSPACE_SIZING_CACHE", str(tmp_path / "c.json"))
+    g = rmat(10, edge_factor=8, seed=11)
+    want = graph.markov_cluster(g, iters=4, backend="scipy")
+    flow = graph._mcl_setup(g)
+    prep = graph.mcl_prepare(flow, iters=4, device=cuda)
+    mcl_equal(graph.mcl_run(prep).to_csr(), want)
+    parts = len(prep["tplan"].parts)
+    for p in (prep, graph.mcl_prepare(flow, iters=4, device=cuda)):
+        before = (gexpand.KERNEL.launches, scan.KERNEL.launches)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = graph.mcl_run(p)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        got = out.to_csr()
+        syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+        assert 1 <= len(syncs) <= 2, [str(w.message) for w in syncs]
+        assert (gexpand.KERNEL.launches - before[0], scan.KERNEL.launches - before[1]) == \
+            (parts, parts + 1 + 2 * 3)
+        mcl_equal(got, want)
+    assert p["sizing_cached"] and p["p_pad"] == prep["p_pad"]
+    prep.update(elem_pad=4096, p_pads=None, blk_caps=None)
+    mcl_equal(graph.mcl_run(prep).to_csr(), want)
+    assert prep["elem_pad"] == 8192 and prep["ran_with"]["elem_pad"] == 4096

@@ -1,8 +1,9 @@
 """The port stands alone: with ``jax`` and the JAX package blocked from
 import, every module of ``outerspace_tpu_torch`` imports, the SpGEMM
 main path runs on the CPU (gather, tiles, flat and "auto", with the
-native planner core), triangles are counted by both routes and a
-``SparseMLP`` serves one forward with the committed weights; and no
+native planner core), triangles are counted by both routes, a
+``SparseMLP`` serves one forward with the committed weights and Markov
+clustering runs through its staged chain and its host loop; and no
 source of the port names either."""
 
 import os
@@ -74,6 +75,16 @@ xs = synthetic_mnist(80, seed=0)["test"][0]
 ref = mlp_forward_dense(p, xs)
 y = SparseMLP(p, device="cpu")(xs).numpy()
 assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max()
+# Markov clustering: the staged chain's entry points and the host loop
+from outerspace_tpu_torch.ops.graph import (
+    _mcl_setup, markov_cluster, mcl_clusters, mcl_prepare, mcl_run)
+ref = markov_cluster(t, iters=3, backend="scipy")
+prep = mcl_prepare(_mcl_setup(t), iters=3, device="cpu")
+for _ in range(2):  # the sizing sweep, then its budgets
+    flow = mcl_run(prep).to_csr()
+    assert flow.nnz == ref.nnz and np.abs(flow.to_dense() - ref.to_dense()).max() <= 1e-4
+assert len(mcl_clusters(flow)) == len(mcl_clusters(ref)) > 0
+assert markov_cluster(t, iters=3, expansion=3, device="cpu").nnz > 0
 leaked = [m for m in sys.modules if m in Blocker.BLOCKED or m.startswith(("jax.", "outerspace_tpu."))]
 assert not leaked, leaked
 print("isolated", len(names))
