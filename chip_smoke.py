@@ -32,7 +32,18 @@ checking every result exactly against scipy:
   1%) at batch 1024 and ``SparseLeNet`` (pruned LeNet) at batch 256, with
   the committed trained weights, each serving four requests through K5
   and checked against the dense torch model on the card (TF32 off); and
-  ``lenet_forward_spgemm`` on 8 images through SpGEMM (K1, K2).
+  ``lenet_forward_spgemm`` on 8 images through SpGEMM (K1, K2);
+- the NN training pipeline at batch 1024 on ``synthetic_mnist(32768)``:
+  MLP1w and LeNet trained for 3 epochs, magnitude-pruned (fc 0.1, conv
+  0.25) and finetuned for 2 on the card, no pruned weight back, test
+  accuracy above 0.6, each served for four requests through
+  ``SparseMLP`` / ``SparseLeNet`` (K5 3 / 5 times per request) within
+  ``NN_REL`` of the dense model; three training steps on the card held
+  to three on the CPU (float64; one float32 step's loss and gradients);
+  ``cli nn --mode pf`` on the card and its pickle served; an exported
+  layer (``act_1 × fc2_weightᵀ``) through ``spgemm`` against scipy; and
+  each model's step time (CUDA events), images/s, one epoch on the host
+  clock and the device's idle share over 10 steps.
 
 Each path's kernel launch counts are set to 0 just before its run and
 read just after; a kernel of the path that was not launched fails the
@@ -56,7 +67,11 @@ prints no last line. Without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -71,6 +86,7 @@ K5_REL = 1e-6  # K5 vs its plain version, relative to max |y|
 ROOT = Path(__file__).resolve().parent
 WEIGHTS = ROOT / "data" / "saved_weights"
 MLP_BATCH, LENET_BATCH, REQUESTS = 1024, 256, 4
+NN_TRAIN_IMAGES, NN_BATCH = 32768, 1024  # the nn training phase's data and batch
 MCL_ITERS = 4
 MCL_RTOL, MCL_ATOL = 5e-4, 1e-5  # the JAX package's MCL tolerance (tests/test_chain.py)
 # device ms (profiler) of the kernels' earlier designs on an NVIDIA H100
@@ -666,6 +682,209 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
             "K1 err": k1_mcl_err, "K3 err": k3_mcl_err}
 
 
+def _steps(torch, train, model_type, sd, x, y, cfg, device, n=3):
+    """``n`` train_steps from ``sd`` on (x, y) on ``device``: the losses
+    and the final parameters, on the host."""
+    model = train.load_model(model_type, sd, device=device)
+    opt = train.make_optimizer(model, cfg)
+    xd, yd = x.to(device), y.to(device)
+    losses = [float(train.train_step(model, opt, xd, yd, cfg)[0]) for _ in range(n)]
+    return losses, {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def _nn_training_phase(torch, np, dev, kernels) -> dict:
+    """Train, prune, finetune and serve MLP1w and LeNet at batch 1024 on
+    the card (TF32 off, set by the caller), hold three steps on the card
+    to three on the CPU, run the ``nn`` CLI's ``pf`` and serve its
+    pickle, and multiply an exported layer through ``spgemm``. Returns
+    the launches of the served and multiplied paths by kernel, and the
+    training steps to time and trace."""
+    from outerspace_tpu_torch import cli
+    from outerspace_tpu_torch.convert import load_params, params_from_state_dict
+    from outerspace_tpu_torch.formats import read_mtx
+    from outerspace_tpu_torch.nn import prune, sparse_infer, train
+    from outerspace_tpu_torch.nn.data import batch_index_sets, synthetic_mnist
+    from outerspace_tpu_torch.nn.export import export_mlp1
+    from outerspace_tpu_torch.ops import spgemm
+    from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_scipy
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {n: k.launches for n, k in kernels.items()}
+
+    def serve(name, flax, requests, per_call, dense_params):
+        """``requests`` through the sparse model; K5 ``per_call`` times
+        per request and nothing else; logits within NN_REL of dense."""
+        cls = sparse_infer.SparseLeNet if name == "LeNet" else sparse_infer.SparseMLP
+        model = cls(flax, device=dev)
+        outs, counts = counted(lambda: [model(x) for x in requests])
+        if counts["K5"] != per_call * len(requests) or sum(counts.values()) != counts["K5"]:
+            raise RuntimeError(f"{name}: launches {counts}, want K5 {per_call} per request only")
+        dense = train.load_model(name, dense_params, device=dev).eval()
+        with torch.no_grad():
+            errs = [_rel_err(y, dense(torch.from_numpy(x).to(dev))[0]) for y, x in zip(outs, requests)]
+        if not all(e < NN_REL for e in errs):
+            raise RuntimeError(f"{name}: max |err| / max |y| {errs} over {NN_REL}")
+        return counts, errs
+
+    t0 = time.perf_counter()
+    data = synthetic_mnist(NN_TRAIN_IMAGES, seed=0)
+    pool = np.concatenate([data[k][0] for k in ("train", "val", "test")])
+    launches = {n: 0 for n in kernels}
+    finetuned, steps = {}, {}
+    for name, conv_level in (("MLP1w", None), ("LeNet", 0.25)):
+        t1 = time.perf_counter()
+        cfg = train.TrainConfig(model_type=name, num_epochs=3, batch_size=NN_BATCH)
+        res = train.train(data, cfg, verbose=False, device=dev)
+        pruned = prune.prune_params(res.best_params, sparsity_level=0.1,
+                                    conv_sparsity_level=conv_level)
+        ft = train.finetune(data, dataclasses.replace(cfg, num_epochs=2), pruned, verbose=False,
+                            device=dev)
+        for label, params in (("final", ft.params), ("best", ft.best_params)):
+            for k, w in pruned.items():
+                back = int(((params[k] != 0) & (w == 0)).sum()) if k.endswith("weight") else 0
+                if back:
+                    raise RuntimeError(f"{name}: {back} pruned weights of {k} came back ({label})")
+        nnz = sum(int((w != 0).sum()) for k, w in pruned.items() if k.endswith("weight"))
+        numel = sum(w.numel() for k, w in pruned.items() if k.endswith("weight"))
+        model = train.load_model(name, ft.best_params, device=dev)
+        test_loss, test_acc = train.evaluate(model, *data["test"], NN_BATCH)
+        trained_acc = train.evaluate(train.load_model(name, res.best_params, device=dev),
+                                     *data["test"], NN_BATCH)[1]
+        if not test_acc > 0.6:
+            raise RuntimeError(f"{name}: test accuracy {test_acc:.4f} after finetune, want > 0.6")
+        shape = (NN_BATCH, 784) if name == "MLP1w" else (NN_BATCH, 28, 28, 1)
+        requests = [pool[i * NN_BATCH:(i + 1) * NN_BATCH].reshape(shape) for i in range(REQUESTS)]
+        per_call = 3 if name == "MLP1w" else 5
+        counts, errs = serve(name, params_from_state_dict(ft.best_params), requests, per_call,
+                             ft.best_params)
+        for k, c in counts.items():
+            launches[k] += c
+        print(f"nn training {name} b{NN_BATCH}: {NN_TRAIN_IMAGES} synthetic images, 3 epochs, "
+              f"test acc {trained_acc:.4f}; pruned to {nnz}/{numel} weights (fc 0.1"
+              f"{', conv 0.25' if conv_level else ''}), 2 finetune epochs, no pruned weight back, "
+              f"test loss {test_loss:.4f} acc {test_acc:.4f} (> 0.6); served {REQUESTS} requests "
+              f"through Sparse{'LeNet' if name == 'LeNet' else 'MLP'}, launches {counts}, each "
+              f"within {NN_REL} of the dense model ({', '.join(f'{e:.3e}' for e in errs)}); "
+              f"history {json.dumps(ft.history)}")
+        finetuned[name] = ft.best_params
+        _phase(f"nn training {name} main path", t1)
+
+        # three steps on the card against three on the CPU from the carried
+        # params and one batch: float64 (Adam steps a weight whose gradient
+        # is within rounding of zero by up to 2·lr, so float32 parameters of
+        # two devices part after a few steps), and float32 for one step's
+        # loss and gradients
+        t1 = time.perf_counter()
+        idx = torch.from_numpy(batch_index_sets(data["train"][0].shape[0], NN_BATCH, seed=0)[0])
+        x = torch.from_numpy(data["train"][0])[idx]
+        y = torch.from_numpy(data["train"][1])[idx].long()
+        l2 = train.TrainConfig(model_type=name, l2reg=True)
+        host = {k: v.cpu() for k, v in res.best_params.items()}
+        h64 = {k: v.double() for k, v in host.items()}
+        cpu64, card64 = (_steps(torch, train, name, h64, x.double(), y, l2, d) for d in ("cpu", dev))
+        loss_err = max(abs(a - b) for a, b in zip(cpu64[0], card64[0]))
+        param_err = _max_diff(cpu64[1], card64[1])
+        if not (loss_err <= 1e-5 and param_err <= 1e-5):
+            raise RuntimeError(f"{name}: 3 float64 steps on the card vs the CPU: loss {loss_err:.3e}, "
+                               f"params {param_err:.3e}, want both within 1e-5")
+        grads = []
+        for d in ("cpu", dev):
+            m = train.load_model(name, host, device=d)
+            loss, _ = train.loss_fn(m, x.to(d), y.to(d), l2)
+            loss.backward()
+            grads.append((loss.item(), {k: p.grad.cpu() for k, p in m.named_parameters()}))
+        g_loss, g_err = abs(grads[0][0] - grads[1][0]), _max_diff(grads[0][1], grads[1][1])
+        if not (g_loss <= 1e-5 and g_err <= 1e-5):
+            raise RuntimeError(f"{name}: a float32 step's loss {g_loss:.3e} / gradients {g_err:.3e} "
+                               f"apart on the card and the CPU (want 1e-5)")
+        cpu32, card32 = (_steps(torch, train, name, host, x, y, l2, d) for d in ("cpu", dev))
+        print(f"nn training {name} l2reg, card vs CPU from the trained params, batch {NN_BATCH}: "
+              f"3 float64 steps, losses within {loss_err:.3e}, params within {param_err:.3e} "
+              f"(want 1e-5); float32 step: loss within {g_loss:.3e}, gradients within {g_err:.3e} "
+              f"(want 1e-5); 3 float32 steps for the record: losses "
+              f"{max(abs(a - b) for a, b in zip(cpu32[0], card32[0])):.3e}, params "
+              f"{_max_diff(cpu32[1], card32[1]):.3e} apart")
+        model = train.load_model(name, res.best_params, device=dev)
+        opt = train.make_optimizer(model, cfg)
+        xs = torch.from_numpy(data["train"][0]).to(dev)
+        ys = torch.from_numpy(data["train"][1]).to(dev).long()
+        sets = torch.from_numpy(batch_index_sets(xs.shape[0], NN_BATCH, seed=1)).to(dev)
+        steps[name] = (model, opt, cfg, xs, ys, sets)
+        _phase(f"nn training {name} card vs CPU", t1)
+
+    # the entry point: the nn CLI's pf on the card, its pickle served
+    t1 = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke_nn"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    pkl = str(out_dir / "pf.pkl")
+    with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+        rc = cli.main(["nn", "--mode", "pf", "--model_type", "MLP1", "--data", "synthetic",
+                       "--num_epochs", "1", "--saved_model_name", pkl])
+    if rc != 0:
+        raise RuntimeError(f"cli nn --mode pf exited {rc}: {cli_out.getvalue()[-2000:]}")
+    flax = load_params(pkl)
+    from outerspace_tpu_torch.convert import state_dict_from_params
+
+    counts, errs = serve("MLP1", flax, [pool[:NN_BATCH].reshape(NN_BATCH, 784)], 3,
+                         state_dict_from_params(flax))
+    for k, c in counts.items():
+        launches[k] += c
+    tags = [ln for ln in cli_out.getvalue().splitlines() if ln.split(":")[0] in
+            ("trained", "pruned", "finetuned")]
+    print(f"cli nn --mode pf (MLP1, synthetic, 1 epoch, on the card): {'; '.join(tags)}; its "
+          f"pickle served through SparseMLP, launches {counts}, within {NN_REL} ({errs[0]:.3e})")
+    _phase("nn training CLI pf", t1)
+
+    # export: the finetuned MLP1w on 64 test images, one layer through spgemm
+    t1 = time.perf_counter()
+    files = export_mlp1(finetuned["MLP1w"], data["test"][0][:64], str(out_dir / "mtx"), device=dev)
+    act, w = read_mtx(files["act_1"]), read_mtx(files["fc2_weight"])
+    want = spgemm_scipy(act, w.T)
+    got, counts = counted(lambda: spgemm(act, w.T, device=dev))
+    assert_csr_allclose(got, want, rtol=VAL_RTOL, atol=VAL_ATOL)
+    if counts["K2"] == 0:
+        raise RuntimeError(f"exported act_1 x fc2_weightᵀ: launches {counts}, want K2")
+    for k, c in counts.items():
+        launches[k] += c
+    print(f"exported MLP1w act_1 {act.shape} nnz {act.nnz} x fc2_weightᵀ {w.T.shape} nnz {w.nnz} "
+          f"through spgemm: nnz {got.nnz} == scipy, structure exact, values within rtol "
+          f"{VAL_RTOL} atol {VAL_ATOL}; launches {counts}")
+    _phase("nn training export", t1)
+
+    # time per step (CUDA events), images/s, one epoch's steps (host clock)
+    t1 = time.perf_counter()
+    for name, (model, opt, cfg, xs, ys, sets) in steps.items():
+        batch = iter(range(10**9))
+
+        def step(model=model, opt=opt, cfg=cfg, xs=xs, ys=ys, sets=sets, batch=batch):
+            idx = sets[next(batch) % sets.shape[0]]
+            return train.train_step(model, opt, xs[idx], ys[idx], cfg)
+
+        ms = _median_ms(torch, step)
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        for _ in range(sets.shape[0]):
+            step()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - ta
+        print(f"nn training {name} b{NN_BATCH} train_step: {ms:.4f} ms by CUDA events (median of "
+              f"10), {NN_BATCH / ms * 1e3:.0f} images/s; one epoch of {sets.shape[0]} steps "
+              f"{epoch_s:.4f} s on the host clock ({sets.shape[0] * NN_BATCH / epoch_s:.0f} "
+              f"images/s)")
+        steps[name] = step
+    _phase("nn training timing", t1)
+    _phase("nn training", t0)
+    return {"launches": launches, "steps": steps}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -857,6 +1076,11 @@ def main() -> int:
     print(f"LeNet through SpGEMM, 8 images: within {NN_REL} of the dense model ({e8:.3e}); "
           f"launches {counts}")
     _phase("sparse-NN SpGEMM witness", t0)
+
+    # ---- the NN training pipeline: train, prune, finetune, serve, export
+    nn_train = _nn_training_phase(torch, np, dev, kernels)
+    for k, c in nn_train["launches"].items():
+        launches[k] = launches.get(k, 0) + c
 
     # ---- each kernel against its plain version, on workload 1's streams
     t0 = time.perf_counter()
@@ -1259,6 +1483,9 @@ def main() -> int:
               f"{alone['K2']:.4f}, carry pass {alone.get('K2 carry', 0.0):.4f}): "
               f"{100 * k2_bound / k2_dev:.1f}% of its {k2_bound:.4f} ms bound (the per-slot "
               f"design it replaced: {K2_BEFORE_MS} ms on the same card model)")
+    for name, step in nn_train["steps"].items():
+        _profile_line(torch, f"nn training {name} b{NN_BATCH}, 10 train_steps",
+                      lambda step=step: [step() for _ in range(10)])
     if not _profile_line(torch, "mcl_rmat14_4iter warm mcl_run", mcl_launches["run"], top=10):
         _profile_line(torch, "mcl_rmat14_4iter warm mcl_run, again", mcl_launches["run"], top=10)
     _phase("timing", t0)

@@ -15,7 +15,11 @@ to find, and it imports nothing of that package:
   to CSR on the card; triangle counting (``ops.graph``); and K5, the
   block-ELL SpMM.
 - ``nn``       — sparse-NN inference: ``SparseMLP`` / ``SparseLeNet``
-  through K5, the SpGEMM forwards, the dense torch models.
+  through K5, the SpGEMM forwards, the dense torch models; and the
+  training pipeline: train, magnitude-prune, finetune, export ``.mtx``
+  operands.
+- ``cli``      — ``python -m outerspace_tpu_torch.cli nn ...``, the NN
+  pipeline from the command line.
 - ``convert``  — operands, plans and trained weights carried across from
   the JAX package's formats.
 - ``runtime``  — builds the hand-written CUDA kernels in ``csrc/`` with

@@ -8,7 +8,8 @@ port's objects, so both packages can be fed the same operand or plan.
 The sparse-NN path's state is the trained weights: the flax parameter
 dicts of numpy arrays that the JAX package pickles
 (``data/saved_weights/``), loaded here without JAX and turned into the
-torch models' ``state_dict``. Nothing here imports the other package:
+torch models' ``state_dict``, and a trained ``state_dict`` turned back
+into that dict. Nothing here imports the other package:
 arrays are read through numpy.
 """
 
@@ -122,3 +123,22 @@ def state_dict_from_params(params) -> dict[str, torch.Tensor]:
                 np.array(params[name]["bias"], np.float32)
             )
     return sd
+
+
+def params_from_state_dict(sd) -> dict:
+    """The inverse of :func:`state_dict_from_params`: a ``state_dict`` of
+    a ``nn.models`` model (tensors on any device) as the flax parameter
+    dict of numpy float32 arrays, ``conv.i`` → ``Conv_i``, ``dense.i`` →
+    ``Dense_i``, Linear weights (out, in) → kernels (in, out), Conv2d
+    weights (out, in, kh, kw) → kernels (kh, kw, in, out). What
+    :func:`load_params` reads, the JAX package's ``load_params`` too, and
+    what ``SparseMLP`` / ``SparseLeNet`` serve."""
+    params = {}
+    for key, t in sd.items():
+        prefix, i, kind = key.split(".")
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        if kind == "weight":
+            arr = np.transpose(arr, (2, 3, 1, 0) if arr.ndim == 4 else (1, 0))
+        layer = params.setdefault(f"{prefix.capitalize()}_{i}", {})
+        layer["kernel" if kind == "weight" else "bias"] = np.ascontiguousarray(arr)
+    return params

@@ -1,5 +1,5 @@
-"""Sparse format layer: containers, block-ELL, Matrix Market reader,
-generators."""
+"""Sparse format layer: containers, block-ELL, Matrix Market reader and
+writer, generators."""
 
 from outerspace_tpu_torch.formats.coo import (  # noqa: F401
     COO,
@@ -12,4 +12,4 @@ from outerspace_tpu_torch.formats.generators import (  # noqa: F401
     erdos_renyi,
     rmat,
 )
-from outerspace_tpu_torch.formats.mtx import read_mtx  # noqa: F401
+from outerspace_tpu_torch.formats.mtx import read_mtx, write_mtx  # noqa: F401

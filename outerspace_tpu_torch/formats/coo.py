@@ -50,6 +50,18 @@ class COO:
         """Permutation sorting entries by (row, col)."""
         return np.lexsort((self.col, self.row))
 
+    def argsort_colmajor(self) -> np.ndarray:
+        """Permutation sorting entries by (col, row)."""
+        return np.lexsort((self.row, self.col))
+
+    def sorted_rowmajor(self) -> "COO":
+        p = self.argsort_rowmajor()
+        return COO(self.shape, self.row[p], self.col[p], self.val[p])
+
+    def sorted_colmajor(self) -> "COO":
+        p = self.argsort_colmajor()
+        return COO(self.shape, self.row[p], self.col[p], self.val[p])
+
     def deduplicated(self) -> "COO":
         """Sum values at duplicate coordinates (row-major result)."""
         if self.nnz == 0:

@@ -1,15 +1,18 @@
-"""Matrix Market (.mtx) reader, Python path.
+"""Matrix Market (.mtx) reader, Python path, and writer.
 
 Same behaviour as the JAX package's Python reader (``formats/mtx.py``):
 ``%`` comment lines skipped, header ``NRow NCol NNZ``, 1-based → 0-based
 indices, a missing value field (pattern matrices) reads as 1.0, and
 ``symmetric`` / ``skew-symmetric`` headers mirror off-diagonal entries.
-``.mtx.gz`` files are decompressed on the fly.
+``.mtx.gz`` files are decompressed on the fly. :func:`write_mtx` writes
+the JAX package's bytes: a general real coordinate file in column-major
+order, values as ``%.9g``.
 """
 
 from __future__ import annotations
 
 import gzip
+import os
 
 import numpy as np
 
@@ -61,3 +64,19 @@ def read_mtx(path: str, expand_symmetric: bool = True) -> COO:
         np.asarray(cols, dtype=INDEX_DTYPE),
         np.asarray(vals, dtype=VALUE_DTYPE),
     )
+
+
+def write_mtx(path: str, m, comment: str | None = None) -> None:
+    """Write a COO / CSR / CSC matrix as a general real coordinate .mtx
+    file, entries in column-major order (as scipy's ``mmwrite``)."""
+    coo = m if isinstance(m, COO) else m.to_coo()
+    coo = coo.sorted_colmajor()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        if comment:
+            for line in comment.splitlines():
+                f.write(f"% {line}\n")
+        f.write(f"{coo.shape[0]} {coo.shape[1]} {coo.nnz}\n")
+        for r, c, v in zip(coo.row, coo.col, coo.val):
+            f.write(f"{int(r) + 1} {int(c) + 1} {float(v):.9g}\n")

@@ -1,4 +1,6 @@
-"""Sparse-NN inference: the pruned MLP and LeNet forwards through K5, the
-block-ELL SpMM kernel (``sparse_infer``), their dense torch models
-(``models``), the lowering helpers (``export``) and synthetic inputs
-(``data``)."""
+"""The NN pipeline: training, evaluation and finetuning (``train``),
+magnitude pruning (``prune``), the torch models and their flax
+initialisation (``models``), MNIST and synthetic data (``data``), export
+of layers as ``.mtx`` SpGEMM operands (``export``), and sparse-NN
+inference: the pruned MLP and LeNet forwards through K5, the block-ELL
+SpMM kernel (``sparse_infer``)."""

@@ -1,6 +1,6 @@
-"""MLP1 and LeNet as torch modules, forward only: the dense oracles of
-the sparse-NN path, with the JAX package's flax models' shapes and
-interface (``nn/models.py``).
+"""MLP1 and LeNet as torch modules: the models the training pipeline
+trains and the dense oracles of the sparse-NN path, with the JAX
+package's flax models' shapes and interface (``nn/models.py``).
 
 - ``MLP1``: 784 → 100 → 100 → 10 (``hidden`` sets the widths), ReLU.
 - ``LeNet``: conv(1→6, k5, pad 2) + maxpool2, conv(6→16, k5, valid) +
@@ -10,11 +10,13 @@ Both return ``(logits, activations)``, activations in the flax models'
 NHWC layout. LeNet computes in NCHW but flattens its pool2 output in
 NHWC order (h, w, c), as flax does, so the carried fc1 weights apply.
 Weights come from the flax parameter dicts via
-``outerspace_tpu_torch.convert.state_dict_from_params``.
+``outerspace_tpu_torch.convert.state_dict_from_params``, or fresh from
+:func:`init_lecun_normal_`, flax's default initialisation.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -86,3 +88,34 @@ def make_model(model_type: str) -> nn.Module:
     if model_type == "LeNet":
         return LeNet()
     raise ValueError(f"unknown model type {model_type!r}")
+
+
+# flax's ``variance_scaling(..., "truncated_normal")`` divides the
+# stddev by the std of a unit normal truncated to [-2, 2], so the draws'
+# variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_lecun_normal_(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Flax's default initialisation, in place: every Linear and Conv2d
+    weight from ``lecun_normal`` (a normal truncated at ±2 of its
+    stddev, variance 1 / fan_in, fan_in = in · kh · kw for a conv), every
+    bias zero. Draws come from a ``torch.Generator`` seeded with ``seed``,
+    on the CPU, layer by layer in module order, so the values do not
+    depend on the model's device (they are not the JAX PRNG's values)."""
+    gen = torch.Generator().manual_seed(seed)
+    for layer in model.modules():
+        if isinstance(layer, (nn.Linear, nn.Conv2d)):
+            w = layer.weight
+            std = math.sqrt(1.0 / (w[0].numel())) / _TRUNC_STD
+            draw = torch.empty(w.shape, dtype=w.dtype)
+            nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std, generator=gen)
+            w.copy_(draw)
+            layer.bias.zero_()
+    return model
+
+
+def activation_sparsity(acts) -> list[float]:
+    """Fraction of nonzero entries per activation."""
+    return [float((a != 0).float().mean()) for a in acts]

@@ -817,3 +817,84 @@ def test_mcl_run_cold_then_warm_on_card(cuda, tmp_path, monkeypatch):
     prep.update(elem_pad=4096, p_pads=None, blk_caps=None)
     mcl_equal(graph.mcl_run(prep).to_csr(), want)
     assert prep["elem_pad"] == 8192 and prep["ran_with"]["elem_pad"] == 4096
+
+
+# ---- the NN training pipeline ------------------------------------------------
+
+
+def steps_on(device, model_type, sd, x, y, cfg, n=3):
+    """``n`` train_steps from ``sd`` on (x, y) on ``device``: the losses
+    and the final state_dict, on the CPU."""
+    from outerspace_tpu_torch.nn import train
+
+    model = train.load_model(model_type, sd, device=device)
+    opt = train.make_optimizer(model, cfg)
+    xd, yd = x.to(device), y.to(device)
+    losses = [float(train.train_step(model, opt, xd, yd, cfg)[0]) for _ in range(n)]
+    return losses, {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.parametrize("model_type", ["MLP1w", "LeNet"])
+def test_train_steps_on_card_equal_cpu(cuda, model_type):
+    # float64 over three steps (Adam moves a weight whose gradient is
+    # within rounding of zero by up to 2·lr, so float32 parameters after
+    # several steps on two devices need not agree); float32 for one
+    # step's loss and gradients (conv1's bias gradient is a float32 sum of
+    # 802,816 terms: cuDNN's and the CPU's part by ~3e-6)
+    from outerspace_tpu_torch.nn import models, train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train.TrainConfig(model_type=model_type, l2reg=True)
+    d = synthetic_mnist(2048, seed=0)["train"]
+    x, y = torch.from_numpy(d[0][:1024]), torch.from_numpy(d[1][:1024]).long()
+    sd = models.init_lecun_normal_(make_model(model_type), 0).state_dict()
+    sd64 = {k: v.double() for k, v in sd.items()}
+    cpu = steps_on("cpu", model_type, sd64, x.double(), y, cfg)
+    card = steps_on(cuda, model_type, sd64, x.double(), y, cfg)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=0, atol=1e-5)
+    for k, v in cpu[1].items():
+        assert float((card[1][k] - v).abs().max()) <= 1e-5, k
+    grads = []
+    for dev in ("cpu", cuda):
+        model = train.load_model(model_type, sd, device=dev)
+        loss, _ = train.loss_fn(model, x.to(dev), y.to(dev), cfg)
+        loss.backward()
+        grads.append((loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    assert abs(grads[0][0] - grads[1][0]) <= 1e-5
+    for k, g in grads[0][1].items():
+        assert float((grads[1][1][k] - g).abs().max()) <= 1e-5, k
+
+
+def test_finetune_on_card_keeps_zeros(cuda):
+    from outerspace_tpu_torch.nn import prune, train
+
+    data = synthetic_mnist(4096, seed=0)
+    cfg = train.TrainConfig(model_type="LeNet", num_epochs=1, batch_size=512)
+    res = train.train(data, cfg, verbose=False, device=cuda)
+    assert all(v.device.type == "cuda" for v in res.params.values())
+    pruned = prune.prune_params(res.best_params)
+    ft = train.finetune(data, cfg, pruned, verbose=False, device=cuda)
+    for name, w in pruned.items():
+        if name.endswith("weight"):
+            assert not torch.any((ft.params[name] != 0) & (w == 0)), name
+
+
+def test_cli_pf_on_card_serves_through_k5(cuda, tmp_path):
+    from outerspace_tpu_torch import cli
+
+    path = str(tmp_path / "pf.pkl")
+    assert cli.main(["nn", "--mode", "pf", "--data", "synthetic", "--num_epochs", "1",
+                     "--saved_model_name", path]) == 0
+    params = load_params(path)
+    x = synthetic_mnist(80, seed=0)["test"][0]
+    model = SparseMLP(params, device=cuda)
+    before = spmm.KERNEL.launches
+    got = model(x)
+    torch.cuda.synchronize()
+    assert spmm.KERNEL.launches == before + 3
+    dense = make_model("MLP1").to(cuda)
+    dense.load_state_dict(state_dict_from_params(params))
+    with torch.no_grad():
+        want = dense(torch.from_numpy(x).to(cuda))[0]
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5

@@ -2,9 +2,10 @@
 import, every module of ``outerspace_tpu_torch`` imports, the SpGEMM
 main path runs on the CPU (gather, tiles, flat and "auto", with the
 native planner core), triangles are counted by both routes, a
-``SparseMLP`` serves one forward with the committed weights and Markov
-clustering runs through its staged chain and its host loop; and no
-source of the port names either."""
+``SparseMLP`` serves one forward with the committed weights, Markov
+clustering runs through its staged chain and its host loop, and the NN
+pipeline takes a training step, prunes, exports and trains through the
+``nn`` CLI; and no source of the port names either."""
 
 import os
 import subprocess
@@ -85,6 +86,25 @@ for _ in range(2):  # the sizing sweep, then its budgets
     assert flow.nnz == ref.nnz and np.abs(flow.to_dense() - ref.to_dense()).max() <= 1e-4
 assert len(mcl_clusters(flow)) == len(mcl_clusters(ref)) > 0
 assert markov_cluster(t, iters=3, expansion=3, device="cpu").nnz > 0
+# the NN training pipeline: one step, pruning, export and the nn CLI
+import contextlib, io, tempfile
+import torch
+from outerspace_tpu_torch import cli
+from outerspace_tpu_torch.nn import models, prune, train
+from outerspace_tpu_torch.nn.export import export_mlp1
+model = models.init_lecun_normal_(models.make_model("MLP1"), 0)
+cfg = train.TrainConfig(l2reg=True)
+loss, acc = train.train_step(model, train.make_optimizer(model, cfg), torch.from_numpy(xs),
+                             torch.zeros(len(xs), dtype=torch.long), cfg)
+assert torch.isfinite(loss)
+pruned = prune.prune_params(model.state_dict())
+assert prune.sparsity_report(pruned)["dense.0.weight"][0] == 7840
+with tempfile.TemporaryDirectory() as d:
+    assert len(export_mlp1(pruned, xs, d, device="cpu")) == 7
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["nn", "--mode", "train", "--device", "cpu", "--data", "synthetic",
+                         "--num_epochs", "1", "--saved_model_name", d + "/m.pkl"]) == 0
+    assert sorted(load_params(d + "/m.pkl")) == ["Dense_0", "Dense_1", "Dense_2"]
 leaked = [m for m in sys.modules if m in Blocker.BLOCKED or m.startswith(("jax.", "outerspace_tpu."))]
 assert not leaked, leaked
 print("isolated", len(names))
@@ -99,7 +119,7 @@ def test_port_imports_and_runs_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("isolated")
-    assert int(out.stdout.split()[1]) >= 33
+    assert int(out.stdout.split()[1]) >= 36
 
 
 def port_sources():
@@ -113,7 +133,7 @@ def port_sources():
 
 def test_port_sources_name_no_jax():
     sources = list(port_sources())
-    assert len(sources) >= 40
+    assert len(sources) >= 43
     for path in sources:
         with open(path, encoding="utf-8") as f:
             text = f.read()
