@@ -6,8 +6,8 @@ Run from the repository root:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (``outerspace_tpu_torch/csrc/*.cu``,
-into ``build/``) and its native planner core (``csrc/gplan.cpp``, g++),
-and drives ``spgemm(A, A)`` through the user entry point on each path,
+into ``build/``) and its host libraries (``csrc/*.cpp``, g++: the planner
+core, the Matrix Market reader, the CPU reference SpGEMM), and drives ``spgemm(A, A)`` through the user entry point on each path,
 checking every result exactly against scipy:
 
 - the windowed-gather pipeline (K1, sort, K2) on rmat14_ef8 and er100k;
@@ -43,7 +43,18 @@ checking every result exactly against scipy:
   ``cli nn --mode pf`` on the card and its pickle served; an exported
   layer (``act_1 × fc2_weightᵀ``) through ``spgemm`` against scipy; and
   each model's step time (CUDA events), images/s, one epoch on the host
-  clock and the device's idle share over 10 steps.
+  clock and the device's idle share over 10 steps;
+- the command line (``cli.main``), its files under
+  ``build/chip_smoke_cli/``: rmat14_ef8 written and read back by the
+  native and the Python reader, plain and gzipped, all equal; ``spgemm``
+  A² by gather, tiles, flat and auto (nnz 8,741,118 and 16,822,071
+  flops, each strategy's kernels launched), its measured ms beside its
+  roofline lines and the same strategy's end-to-end split; ``spgemm
+  --out`` of rmat10_ef8 · rmat10_ef8ᵀ read back against scipy;
+  ``graph triangles`` of rmat13 by both routes (315,423) and ``graph
+  mcl`` of mcl_rmat14_4iter (its cluster count equal to scipy's MCL);
+  the microbench suite; ``ref_spgemm_native`` on rmat14_ef8 against
+  scipy, timed beside it.
 
 Each path's kernel launch counts are set to 0 just before its run and
 read just after; a kernel of the path that was not launched fails the
@@ -78,8 +89,13 @@ import sys
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
+# the card's memory rate and float32 peak outside the tensor cores: the
+# spec-sheet values of the port's roofline config, one source for the
+# kernels' bounds here and the command line's roofline
+from outerspace_tpu_torch.perf.roofline import GPUConfig  # noqa: E402
+
+HBM_BYTES_PER_S = GPUConfig().hbm_bw_bytes
+FP32_OPS_PER_S = GPUConfig().fp32_ops
 VAL_RTOL, VAL_ATOL = 1e-5, 1e-6  # summation order differs from the oracle
 NN_REL = 1e-5  # NN output vs the dense model, relative to its max |y|
 K5_REL = 1e-6  # K5 vs its plain version, relative to max |y|
@@ -679,7 +695,167 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     # traces: after a trace this large, the next traces in the process
     # dropped device activity
     return {"K1": counts["K1"], "K2": counts["K2"], "run": lambda: graph.mcl_run(prep),
-            "K1 err": k1_mcl_err, "K3 err": k3_mcl_err}
+            "K1 err": k1_mcl_err, "K3 err": k3_mcl_err, "clusters": len(want_clusters)}
+
+
+def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want: int) -> dict:
+    """The command line on the card, through ``cli.main`` as a user runs
+    it, its files under ``build/chip_smoke_cli/`` (with its own sizing
+    cache): rmat14_ef8 written and read back (native and Python readers,
+    plain and gzipped, all equal); ``spgemm`` A² by each strategy (nnz
+    and flops exact, each strategy's kernels launched), its measured ms
+    beside its roofline and the earlier phase's end-to-end split;
+    ``spgemm --out`` of rmat10_ef8 · rmat10_ef8ᵀ read back against
+    scipy; ``graph triangles`` by both routes and ``graph mcl`` against
+    scipy's counts; the microbench suite; ``ref_spgemm_native`` against
+    scipy, timed beside it. Returns the phase's launches per kernel."""
+    import gzip
+    import os
+    import re
+
+    from outerspace_tpu_torch import cli
+    from outerspace_tpu_torch.formats import read_mtx, rmat, write_mtx
+    from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_flops, spgemm_scipy
+    from outerspace_tpu_torch.perf import microbench
+    from outerspace_tpu_torch.perf.roofline import achieved_fraction
+    from outerspace_tpu_torch.runtime.native import ref_spgemm_native
+    from outerspace_tpu_torch.sched import autotune
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    os.environ["OUTERSPACE_SIZING_CACHE"] = str(out_dir / "sizing_cache.json")
+    launches = dict.fromkeys(kernels, 0)
+
+    def run_cli(argv, path=()):
+        """One ``cli.main`` call, counted; returns its standard output."""
+        for k in kernels.values():
+            k.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([*argv, "--device", str(dev)])
+        torch.cuda.synchronize()
+        counts = {n: k.launches for n, k in kernels.items()}
+        if rc != 0:
+            raise RuntimeError(f"cli {' '.join(argv)}: exit {rc}\n{buf.getvalue()}")
+        for n in path:
+            if counts[n] == 0:
+                raise RuntimeError(f"cli {' '.join(argv)}: kernel {n} was never launched")
+        for n, c in counts.items():
+            launches[n] += c
+        return buf.getvalue(), counts
+
+    def field(text, pattern):
+        found = re.search(pattern, text)
+        if not found:
+            raise RuntimeError(f"no {pattern!r} in the CLI's output:\n{text}")
+        return found.group(1)
+
+    # ---- files in: the native and Python readers, plain and gzipped
+    a = rmat(14, edge_factor=8, seed=1)
+    f14 = str(out_dir / "rmat14_ef8.mtx")
+    ta = time.perf_counter()
+    write_mtx(f14, a)
+    with open(f14, "rb") as src, gzip.open(f14 + ".gz", "wb", compresslevel=1) as dst:
+        shutil.copyfileobj(src, dst)
+    write_ms = (time.perf_counter() - ta) * 1e3
+    reads, read_ms = {}, {}
+    for name, path, native in (("native", f14, True), ("python", f14, False),
+                               ("native .gz", f14 + ".gz", True), ("python .gz", f14 + ".gz", False)):
+        ta = time.perf_counter()
+        reads[name] = read_mtx(path, native=native)
+        read_ms[name] = (time.perf_counter() - ta) * 1e3
+    want_sorted = a.sorted_colmajor()
+    for name, got in reads.items():
+        if got.shape != a.shape or not all(np.array_equal(getattr(got, f), getattr(want_sorted, f))
+                                           for f in ("row", "col", "val")):
+            raise RuntimeError(f"rmat14_ef8 read back by the {name} reader differs from what was written")
+    print(f"cli files: rmat14_ef8 ({a.nnz} entries) written in {write_ms:.3f} ms (and gzipped); "
+          "read back equal to it by each reader, ms: "
+          + ", ".join(f"{name} {ms:.3f}" for name, ms in read_ms.items()))
+    _phase("cli files in", t0)
+
+    # ---- spgemm A² by each strategy through the command line
+    t1 = time.perf_counter()
+    want_nnz, want_flops = 8_741_118, 16_822_071
+    if spgemm_flops(a.to_csc(), a.to_csr()) != want_flops:
+        raise RuntimeError("spgemm_flops of rmat14_ef8 A² is not 16,822,071")
+    pick = autotune.autotune(a.to_csc(), a.to_csr())[0]
+    paths = {"gather": ("K1", "K2"), "tiles": ("K3", "K1", "K2"), "flat": ("K2",)}
+    for st in ("gather", "tiles", "flat", "auto"):
+        path = paths[pick if st == "auto" else st]
+        text, counts = run_cli(["spgemm", f14, f14, "--no-transpose", "--strategy", st], path)
+        nnz, flops = int(field(text, r"nnz: (\d+)")), int(field(text, r"multiply flops: (\d+)"))
+        if (nnz, flops) != (want_nnz, want_flops):
+            raise RuntimeError(f"cli spgemm {st}: nnz {nnz}, flops {flops}; want "
+                               f"{want_nnz}, {want_flops}")
+        ms = float(field(text, r"measured \(end-to-end\): ([\d.]+) ms"))
+        mult = float(field(text, r"analytical multiply \(roofline\): ([\d.]+) ms"))
+        merge = float(field(text, r"analytical merge \(roofline\):\s+([\d.]+) ms"))
+        ran = field(text, r"strategy: (\w+)")
+        split = splits["rmat14_ef8", ran]
+        print(f"cli spgemm rmat14_ef8 --strategy {st} (ran {ran}): nnz {nnz}, flops {flops} exact; "
+              f"measured {ms:.3f} ms end to end; roofline multiply {mult:.3f} + merge {merge:.3f} "
+              f"ms, achieved fraction {achieved_fraction(ms, mult + merge):.4f}; the same "
+              f"strategy's spgemm in the splits above {sum(split):.3f} ms (host plan "
+              f"{split[0]:.3f}, device {split[1]:.3f}, fetch {split[2]:.3f}), so the CLI's own "
+              f"cost {ms - sum(split):.3f} ms; launches (warm and measured call) {counts}")
+    _phase("cli spgemm", t1)
+
+    # ---- spgemm --out: rmat10_ef8 · rmat10_ef8ᵀ read back against scipy
+    t1 = time.perf_counter()
+    f10 = str(ROOT / "data" / "mtx" / "rmat10_ef8.mtx")
+    out = str(out_dir / "c10.mtx")
+    text, counts = run_cli(["spgemm", f10, f10, "--out", out])
+    a10 = read_mtx(f10)
+    want10 = spgemm_scipy(a10, a10.transpose())
+    got10 = read_mtx(out).to_csr()
+    assert_csr_allclose(got10, want10, rtol=VAL_RTOL, atol=VAL_ATOL)
+    print(f"cli spgemm --out rmat10_ef8 · rmat10_ef8ᵀ: {got10.nnz} entries read back, structure "
+          f"exact against scipy, values within rtol {VAL_RTOL} atol {VAL_ATOL} after %.9g; "
+          f"launches {counts}")
+
+    # ---- graph triangles (both routes) and graph mcl against scipy
+    g13 = str(out_dir / "triangles_rmat13.mtx")
+    write_mtx(g13, rmat(13, edge_factor=8, seed=4))
+    for route, path in (("dense", ()), ("sparse", ("K3", "K1", "K2"))):
+        text, counts = run_cli(["graph", "triangles", g13, "--strategy", route], path)
+        got = int(field(text, r"triangles: (\d+)"))
+        if got != tri_want or got != 315_423:
+            raise RuntimeError(f"cli graph triangles --strategy {route}: {got}, scipy {tri_want}")
+        ms = field(text, r"triangles: \d+ \(([\d.]+) ms\)")
+        print(f"cli graph triangles rmat13 --strategy {route}: {got} == scipy, {ms} ms; "
+              f"launches {counts}")
+    g14 = str(out_dir / "mcl_rmat14.mtx")
+    write_mtx(g14, rmat(14, edge_factor=8, seed=7))
+    text, counts = run_cli(["graph", "mcl", g14, "--iters", str(MCL_ITERS)], ("K1", "K2"))
+    got = int(field(text, r"mcl: (\d+) clusters"))
+    if got != mcl_clusters_want:
+        raise RuntimeError(f"cli graph mcl: {got} clusters, scipy's MCL {mcl_clusters_want}")
+    ms, model = field(text, r"clusters \(([\d.]+) ms\)"), field(text, r"(analytical model: .+)")
+    print(f"cli graph mcl mcl_rmat14_4iter (cold, its own sizing cache): {got} clusters == scipy's "
+          f"MCL; measured {ms} ms, {model}; launches {counts}")
+    _phase("cli --out and graph", t1)
+
+    # ---- the microbench suite and the native CPU reference
+    t1 = time.perf_counter()
+    print("microbench suite (seconds per call, CUDA events): "
+          + json.dumps(microbench.suite(device=str(dev))))
+    a_csc, a_csr = a.to_csc(), a.to_csr()
+    ta = time.perf_counter()
+    ref = ref_spgemm_native(a_csc, a_csr)
+    ref_ms = (time.perf_counter() - ta) * 1e3
+    ta = time.perf_counter()
+    want = spgemm_scipy(a, a)
+    scipy_ms = (time.perf_counter() - ta) * 1e3
+    assert_csr_allclose(ref, want, rtol=VAL_RTOL, atol=VAL_ATOL)
+    print(f"ref_spgemm_native rmat14_ef8 A²: nnz {ref.nnz}, structure exact against scipy, values "
+          f"within rtol {VAL_RTOL} atol {VAL_ATOL}; {ref_ms:.3f} ms, scipy {scipy_ms:.3f} ms "
+          "(host clock, one run each)")
+    _phase("cli microbench and native reference", t1)
+    _phase("cli", t0)
+    return launches
 
 
 def _steps(torch, train, model_type, sd, x, y, cfg, device, n=3):
@@ -935,7 +1111,8 @@ def main() -> int:
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  ptxas {name}: {ln.strip()}")
-    print(f"  g++ planner core: {build.build_host('gplan').name}")
+    for name in build.HOST_SOURCES:  # the planner core, the .mtx reader, the CPU reference
+        print(f"  g++ {name}: {build.build_host(name).name}")
     _phase("build", t0)
 
     kernels = {"K1": gexpand.KERNEL, "K2": scan.KERNEL,
@@ -1386,6 +1563,11 @@ def main() -> int:
                           for st in cost)
               + f"; gather merge stream {fill:.4f} x the products")
     _phase("timing: end-to-end splits", t1)
+
+    # ---- the command line: spgemm, graph, the readers, the reference
+    cli_launches = _cli_phase(torch, np, dev, kernels, splits, tri_want, mcl_launches["clusters"])
+    for k, c in cli_launches.items():
+        launches[k] = launches.get(k, 0) + c
 
     pipelines = [(st, *_strategy_fns(st, a_csc, b_csr, dev)) for st in ("gather", "tiles")]
     pipelines = [(st, plan_fn(), run_fn) for st, plan_fn, run_fn in pipelines]

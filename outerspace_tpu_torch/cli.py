@@ -1,27 +1,141 @@
 """The port's command line.
 
+    python -m outerspace_tpu_torch.cli spgemm M1.mtx M2.mtx [--strategy ...] [--out C.mtx]
+    python -m outerspace_tpu_torch.cli graph {triangles,mcl} G.mtx [--iters N]
     python -m outerspace_tpu_torch.cli nn --mode {train,prune,finetune,eval,pf,export} ...
 
+``spgemm`` reads two Matrix Market files and computes C = M1 · M2ᵀ
+(``--no-transpose``: M1 · M2), then prints C's shape and nnz, the
+multiply-phase FLOP count, the card's roofline for the multiply and the
+merge (``perf.roofline``), the measured end-to-end time of a warm call
+and GFLOP/s; ``--out`` writes C. ``graph`` counts triangles or runs
+Markov clustering (MCL, with the roofline of its chain) on one graph.
 ``nn`` is the NN pipeline: train a model, magnitude-prune it, finetune
 the pruned model with its zeros kept, evaluate it on the test split,
 ``pf`` (train, prune, finetune with evaluations in between) and
 ``export`` (the weights and one test batch's activations as ``.mtx``
-SpGEMM operands). The arguments and defaults are the JAX package's
-``cli.py nn``; ``--device`` (default ``cuda``) picks where it runs.
-``--data mnist`` without idx files (``nn.data.find_mnist_dir``) trains on
-``synthetic_mnist`` instead.
+SpGEMM operands); ``--data mnist`` without idx files
+(``nn.data.find_mnist_dir``) trains on ``synthetic_mnist`` instead.
+
+The arguments and defaults are the JAX package's ``cli.py``; ``--device``
+(default ``cuda``) picks where the work runs. The options of the
+sharded mode and the ``predict`` and ``bench`` subcommands are
+recognised and answered with :data:`NOT_PORTED` (exit 2).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import sys
+import time
 
 NOT_PORTED = (
-    "Not ported yet: the spgemm and graph subcommands, predict, and --mesh "
-    "(the sharded mode)."
+    "Not ported yet: --mesh, --chunks, --merge-parts and --loop (the sharded "
+    "mode, ROADMAP queue A item 4), predict (its event model, queue A item 5) "
+    "and bench (queue A item 3)."
 )
+
+
+def _not_ported() -> int:
+    print(NOT_PORTED, file=sys.stderr)
+    return 2
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def cmd_spgemm(args) -> int:
+    from outerspace_tpu_torch.config import DEFAULT
+    from outerspace_tpu_torch.formats import read_mtx, write_mtx
+    from outerspace_tpu_torch.ops.reference import spgemm_flops
+    from outerspace_tpu_torch.ops.spgemm import default_part_count, spgemm
+    from outerspace_tpu_torch.ops.symbolic import expansion_plan
+    from outerspace_tpu_torch.perf.roofline import predict_merge_time, predict_multiply_time
+    from outerspace_tpu_torch.sched.autotune import autotune
+    from outerspace_tpu_torch.sched.gplanner import perf_part_count
+
+    if args.mesh or args.chunks is not None or args.merge_parts is not None:
+        return _not_ported()
+    cfg = DEFAULT.override(args.set or [])
+    m1 = read_mtx(args.matrix1)
+    m2 = read_mtx(args.matrix2)
+    if not args.no_transpose:
+        m2 = m2.transpose()
+    a_csc, b_csr = m1.to_csc(), m2.to_csr()
+    if a_csc.shape[1] != b_csr.shape[0]:
+        print(f"dimension mismatch: {a_csc.shape} @ {b_csr.shape}", file=sys.stderr)
+        return 2
+    flops = spgemm_flops(a_csc, b_csr)
+    plan = expansion_plan(a_csc, b_csr)
+    p_pad = plan.padded_size()
+    # one cost-model pick for the strategy, its waste limit and the merge
+    # parts the picked pipeline sorts in
+    strategy, waste_limit = autotune(a_csc, b_csr)
+    if args.strategy != "auto":
+        strategy = args.strategy
+    if cfg.waste_limit is None:
+        cfg = dataclasses.replace(cfg, waste_limit=waste_limit)
+    merge_parts = {"gather": perf_part_count(plan.expansion_size),
+                   "tiles": default_part_count(p_pad), "flat": 1}[strategy]
+    roof_mult = predict_multiply_time(p_pad, m1.nnz, m2.nnz)
+    roof_merge = predict_merge_time(p_pad, parts=merge_parts)
+    spgemm(a_csc, b_csr, strategy=strategy, config=cfg, device=args.device)  # warm
+    t0 = time.perf_counter()
+    c = spgemm(a_csc, b_csr, strategy=strategy, config=cfg, device=args.device)
+    _sync(args.device)
+    elapsed = time.perf_counter() - t0
+    print(f"C shape: {c.shape}, nnz: {c.nnz}")
+    print(f"multiply flops: {flops}")
+    print(f"strategy: {strategy} (waste limit {cfg.waste_limit}, merge parts {merge_parts})")
+    print(f"analytical multiply (roofline): {roof_mult * 1e3:.3f} ms")
+    print(f"analytical merge (roofline):    {roof_merge * 1e3:.3f} ms")
+    print(f"measured (end-to-end): {elapsed * 1e3:.3f} ms")
+    print(f"GFlops: {flops / elapsed / 1e9:.4f}")
+    if args.out:
+        write_mtx(args.out, c)
+        print(f"wrote {args.out}")
+    return 0
+
+
+def cmd_graph(args) -> int:
+    from outerspace_tpu_torch.formats import read_mtx
+    from outerspace_tpu_torch.ops.graph import markov_cluster, mcl_clusters, triangle_count
+    from outerspace_tpu_torch.perf.roofline import predict_mcl_time
+
+    if args.mesh or args.loop is not None:
+        return _not_ported()
+    g = read_mtx(args.matrix)
+    if args.kernel == "triangles":
+        t0 = time.perf_counter()
+        n = triangle_count(g, strategy=args.strategy, backend=args.backend, device=args.device)
+        dt = time.perf_counter() - t0
+        print(f"triangles: {n} ({dt * 1e3:.1f} ms)")
+        return 0
+    report: dict = {}
+    t0 = time.perf_counter()
+    flow = markov_cluster(g, iters=args.iters, backend=args.backend, device=args.device,
+                          report=report)
+    clusters = mcl_clusters(flow)
+    dt = time.perf_counter() - t0
+    if report.get("p_pad"):
+        pred = predict_mcl_time(
+            report["stage1_stream"],
+            report.get("p_pads") or (report["p_pad"],) * max(report["iters"] - 1, 0),
+            report.get("elem_pad") or report["nnz_pad"],
+            stage1_parts=report["stage1_parts"],
+        )
+        print(f"analytical model: {pred * 1e3:.1f} ms")
+    elif report.get("fast_path") is False:
+        # the exact stepwise chain ran, which the chain's model does not describe
+        print("analytical model: n/a (stepwise fallback ran)")
+    print(f"mcl: {len(clusters)} clusters ({dt * 1e3:.1f} ms)")
+    return 0
 
 
 def cmd_nn(args) -> int:
@@ -112,6 +226,22 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="outerspace_tpu_torch", epilog=NOT_PORTED)
     sub = parser.add_subparsers(dest="command", required=True)
 
+    p = sub.add_parser("spgemm", help="C = M1 · M2ᵀ from .mtx operands", epilog=NOT_PORTED)
+    p.add_argument("matrix1")
+    p.add_argument("matrix2")
+    p.add_argument("--strategy", default="auto", choices=["auto", "flat", "tiles", "gather"])
+    p.add_argument("--no-transpose", action="store_true",
+                   help="compute M1 · M2 instead of M1 · M2ᵀ")
+    p.add_argument("--out", default=None, help="write result .mtx here")
+    p.add_argument("--set", action="append", metavar="KEY=VALUE",
+                   help="override a Config field (e.g. --set waste_limit=3.0)")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs there)")
+    p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--chunks", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--merge-parts", type=int, default=None, dest="merge_parts",
+                   help=argparse.SUPPRESS)
+    p.set_defaults(fn=cmd_spgemm)
+
     p = sub.add_parser("nn", help="NN pipeline (train/prune/finetune/eval/pf/export)",
                        epilog=NOT_PORTED)
     p.add_argument("--mode", required=True,
@@ -132,6 +262,24 @@ def main(argv=None) -> int:
                    help="mnist falls back to synthetic_mnist when no idx files are found")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs there)")
     p.set_defaults(fn=cmd_nn)
+
+    p = sub.add_parser("graph", help="graph kernels via repeated A²", epilog=NOT_PORTED)
+    p.add_argument("kernel", choices=["triangles", "mcl"])
+    p.add_argument("matrix")
+    p.add_argument("--backend", default="torch", choices=["torch", "scipy"])
+    p.add_argument("--strategy", default="auto", choices=["auto", "dense", "sparse"],
+                   help="triangles only: dense product vs the sparse pipeline "
+                        "(auto = the selector's pick)")
+    p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs there)")
+    p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--loop", default=None, help=argparse.SUPPRESS)
+    p.set_defaults(fn=cmd_graph)
+
+    for name in ("predict", "bench"):
+        p = sub.add_parser(name, help="not ported yet", epilog=NOT_PORTED)
+        p.add_argument("rest", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
+        p.set_defaults(fn=lambda args: _not_ported())
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -1,6 +1,11 @@
-"""Block-ELL: the padded block-sparse layout of the SpMM kernel's weights.
+"""Regroupings of sparse matrices: ``CompactCOO`` and block-ELL.
 
-Rows are tiled into ``bm``-high stripes; each stripe's nonzero column
+``CompactCOO`` regroups a CSR by position within its row: group *j*
+holds the *j*-th nonzero of every row that has more than *j*, an
+interchange format checked by a round trip (``sanity_check``).
+
+Block-ELL is the padded block-sparse layout of the SpMM kernel's
+weights. Rows are tiled into ``bm``-high stripes; each stripe's nonzero column
 blocks (``bn`` wide) are gathered and padded to the matrix's maximum, so
 every array has a static shape. It is the operand layout of K5
 (``ops/kernels/spmm.py``: sparse weights × dense activations). numpy,
@@ -15,6 +20,45 @@ import dataclasses
 import numpy as np
 
 from outerspace_tpu_torch.formats.coo import COO, INDEX_DTYPE, VALUE_DTYPE
+from outerspace_tpu_torch.formats.csr import CSR
+
+
+@dataclasses.dataclass
+class CompactCOO:
+    """Row-position-grouped COO: ``groups[j]`` is the (rows, cols, vals)
+    triple of the *j*-th nonzero of every row with nnz > j, rows
+    ascending (array for array the JAX package's ``CompactCOO``)."""
+
+    shape: tuple[int, int]
+    groups: list[tuple[np.ndarray, np.ndarray, np.ndarray]]
+
+    @property
+    def nnz(self) -> int:
+        return int(sum(g[0].shape[0] for g in self.groups))
+
+    @classmethod
+    def from_csr(cls, m: CSR) -> "CompactCOO":
+        row_nnz = m.major_nnz()
+        groups = []
+        for j in range(int(row_nnz.max(initial=0))):
+            rows = np.nonzero(row_nnz > j)[0].astype(INDEX_DTYPE)
+            idx = np.asarray(m.indptr[rows], dtype=np.int64) + j
+            groups.append((rows, m.indices[idx], m.data[idx]))
+        return cls(m.shape, groups)
+
+    def to_coo(self) -> COO:
+        """The entries group by group (not sorted)."""
+        if not self.groups:
+            e = np.zeros(0, dtype=INDEX_DTYPE)
+            return COO(self.shape, e, e, np.zeros(0, dtype=VALUE_DTYPE))
+        return COO(self.shape, *(np.concatenate([g[i] for g in self.groups]) for i in range(3)))
+
+    def sanity_check(self, original: CSR, eps: float = 1e-6) -> bool:
+        """Whether the round trip gives ``original`` back
+        (``ops.reference.compare_coo``, relative ``eps``)."""
+        from outerspace_tpu_torch.ops.reference import compare_coo
+
+        return compare_coo(self.to_coo(), original.to_coo(), eps=eps)
 
 
 @dataclasses.dataclass

@@ -15,6 +15,11 @@ INDEX_DTYPE = np.int32
 VALUE_DTYPE = np.float32
 
 
+class DuplicateCoordinateError(ValueError):
+    """Raised by :meth:`COO.dupcheck` when a (row, col) coordinate
+    appears twice."""
+
+
 @dataclasses.dataclass
 class COO:
     """Sparse matrix in coordinate format (struct-of-arrays)."""
@@ -61,6 +66,20 @@ class COO:
     def sorted_colmajor(self) -> "COO":
         p = self.argsort_colmajor()
         return COO(self.shape, self.row[p], self.col[p], self.val[p])
+
+    def dupcheck(self) -> None:
+        """Raise :class:`DuplicateCoordinateError`, naming the first
+        duplicate in row-major order, if any (row, col) appears twice."""
+        if self.nnz < 2:
+            return
+        p = self.argsort_rowmajor()
+        r, c = self.row[p], self.col[p]
+        dup = (r[1:] == r[:-1]) & (c[1:] == c[:-1])
+        if dup.any():
+            i = int(np.argmax(dup))
+            raise DuplicateCoordinateError(
+                f"duplicate coordinate ({int(r[i + 1])}, {int(c[i + 1])})"
+            )
 
     def deduplicated(self) -> "COO":
         """Sum values at duplicate coordinates (row-major result)."""

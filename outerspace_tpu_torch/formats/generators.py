@@ -1,4 +1,4 @@
-"""Synthetic sparse operand generators: Erdős–Rényi and R-MAT.
+"""Synthetic sparse operand generators: Erdős–Rényi, R-MAT and banded.
 
 Deterministic given a seed, and bit-identical to the JAX package's
 generators (``formats/generators.py``) for the same arguments: both draw
@@ -80,6 +80,21 @@ def rmat(
         vals,
     )
     return coo.deduplicated()
+
+
+def banded(n: int, bandwidth: int, seed: int = 0) -> COO:
+    """n × n band matrix: every entry within ``bandwidth`` of the
+    diagonal, ordered by diagonal offset, uniform values in [0.5, 1.5)."""
+    rng = np.random.default_rng(seed)
+    rows_l, cols_l = [], []
+    for off in range(-bandwidth, bandwidth + 1):
+        r = np.arange(max(0, -off), min(n, n - off))
+        rows_l.append(r)
+        cols_l.append(r + off)
+    rows = np.concatenate(rows_l).astype(INDEX_DTYPE)
+    cols = np.concatenate(cols_l).astype(INDEX_DTYPE)
+    vals = _gen_values(rng, rows.shape[0], "uniform")
+    return COO((n, n), rows, cols, vals)
 
 
 def _gen_values(rng, n: int, kind: str) -> np.ndarray:

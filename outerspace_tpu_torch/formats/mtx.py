@@ -1,26 +1,48 @@
-"""Matrix Market (.mtx) reader, Python path, and writer.
+"""Matrix Market (.mtx) reader and writer.
 
-Same behaviour as the JAX package's Python reader (``formats/mtx.py``):
-``%`` comment lines skipped, header ``NRow NCol NNZ``, 1-based → 0-based
-indices, a missing value field (pattern matrices) reads as 1.0, and
-``symmetric`` / ``skew-symmetric`` headers mirror off-diagonal entries.
-``.mtx.gz`` files are decompressed on the fly. :func:`write_mtx` writes
-the JAX package's bytes: a general real coordinate file in column-major
-order, values as ``%.9g``.
+:func:`read_mtx` parses with the native C++ reader
+(``runtime.native.read_mtx_native``) unless ``native=False`` asks for the
+Python one; both behave as the JAX package's readers
+(``formats/mtx.py``): ``%`` comment lines skipped, header
+``NRow NCol NNZ``, 1-based → 0-based indices, a missing value field
+(pattern matrices) reads as 1.0, and ``symmetric`` / ``skew-symmetric``
+headers mirror off-diagonal entries. :func:`write_mtx` writes the JAX
+package's bytes: a general real coordinate file in column-major order,
+values as ``%.9g``.
 """
 
 from __future__ import annotations
 
 import gzip
 import os
+import shutil
+import tempfile
 
 import numpy as np
 
 from outerspace_tpu_torch.formats.coo import COO, INDEX_DTYPE, VALUE_DTYPE
 
 
-def read_mtx(path: str, expand_symmetric: bool = True) -> COO:
-    """Read a Matrix Market coordinate file into COO."""
+def read_mtx(path: str, expand_symmetric: bool = True, native: bool = True) -> COO:
+    """Read a Matrix Market coordinate file (``.mtx``, or ``.mtx.gz``)
+    into COO. The native reader's failures raise; with ``native=True`` a
+    ``.gz`` file is decompressed to a temporary file (under ``$TMPDIR``,
+    removed after) and read natively."""
+    if not native:
+        return _read_mtx_python(path, expand_symmetric)
+    from outerspace_tpu_torch.runtime.native import read_mtx_native
+
+    if not path.endswith(".gz"):
+        return read_mtx_native(path, expand_symmetric)
+    with tempfile.TemporaryDirectory() as d:
+        tmp = os.path.join(d, "m.mtx")
+        with gzip.open(path, "rb") as src, open(tmp, "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        return read_mtx_native(tmp, expand_symmetric)
+
+
+def _read_mtx_python(path: str, expand_symmetric: bool) -> COO:
+    """The Python reader (``.gz`` decompressed on the fly)."""
     opener = gzip.open if path.endswith(".gz") else open
     rows: list[int] = []
     cols: list[int] = []

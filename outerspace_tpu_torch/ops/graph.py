@@ -269,7 +269,9 @@ def markov_cluster(
     loop over ``spgemm``, which stops early once the flow stops changing.
     ``backend="scipy"`` is that host loop over scipy's product (the
     reference). ``report`` (staged chain only) receives the budgets the
-    run used and whether it took the fast path."""
+    run used, whether it took the fast path, and its first squaring's
+    merged stream length (``stage1_stream``) and row parts
+    (``stage1_parts``)."""
     if backend not in ("torch", "scipy"):
         raise ValueError(f"unknown backend {backend!r}")
     coo = adj.to_coo() if not isinstance(adj, COO) else adj
@@ -286,7 +288,9 @@ def markov_cluster(
             # next run; the stepwise chain it ran has no such budgets)
             budgets = prep["ran_with"]
             fast = budgets["p_pad"] == prep["p_pad"]
-            report.update(budgets, iters=iters, fast_path=fast)
+            slots, parts = _stage1_stream(prep["tplan"])
+            report.update(budgets, iters=iters, fast_path=fast, stage1_stream=slots,
+                          stage1_parts=parts)
             if not fast:
                 report["p_pad"] = None
         return out.to_csr()
@@ -447,6 +451,18 @@ def _stage1_stream_layout(tplan):
             return None  # the two-key merge: another stream shape
         return [(lo, hi, tplan.merge_pad) for lo, hi, _ in tplan.parts]
     return None
+
+
+def _stage1_stream(tplan) -> tuple[int, int]:
+    """(slots, row parts) of the first squaring's merged stream."""
+    from outerspace_tpu_torch.ops.gather_pipeline import GatherPipelinePlan
+    from outerspace_tpu_torch.ops.spgemm import TiledPartsPlan
+
+    if isinstance(tplan, GatherPipelinePlan):
+        return sum(p.merge_pad for p in tplan.parts), len(tplan.parts)
+    if isinstance(tplan, TiledPartsPlan):
+        return tplan.padded_total, len(tplan.parts)
+    return tplan.padded_total, 1
 
 
 def _blk_caps_with_margin(caps):

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` and its host planner core
+"""Build the port's CUDA kernels with ``nvcc`` and its host libraries
+(the planner core, the Matrix Market reader, the CPU reference SpGEMM)
 with ``g++``, and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exports plain C launchers (no PyTorch headers),
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
 )
 KERNEL_SOURCES = ("gexpand", "scan", "expand", "spmm")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-HOST_SOURCES = ("gplan",)
+HOST_SOURCES = ("gplan", "mtx_reader", "ref_spgemm")
 
 
 def nvcc_path() -> str:

@@ -106,5 +106,10 @@ def test_missing_model_and_help(capsys):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0
     assert "Not ported yet" in out.stdout and "--mesh" in out.stdout
+    # predict is not ported: exit 2 with the message; spgemm reads its files
+    assert cli.main(["predict", "a.mtx", "b.mtx"]) == 2
+    assert cli.NOT_PORTED in capsys.readouterr().err
+    with pytest.raises(FileNotFoundError):
+        cli.main(["spgemm", "a.mtx", "b.mtx", "--device", "cpu"])
     with pytest.raises(SystemExit):
-        cli.main(["spgemm", "a.mtx", "b.mtx"])
+        cli.main(["sharded"])

@@ -898,3 +898,33 @@ def test_cli_pf_on_card_serves_through_k5(cuda, tmp_path):
     with torch.no_grad():
         want = dense(torch.from_numpy(x).to(cuda))[0]
     assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("strategy", ["gather", "tiles", "flat"])
+def test_cli_spgemm_on_card_out_equals_scipy(cuda, tmp_path, capsys, strategy):
+    from outerspace_tpu_torch import cli
+    from outerspace_tpu_torch.formats import read_mtx
+
+    f = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "data", "mtx", "rmat10_ef8.mtx")
+    out = str(tmp_path / "c.mtx")
+    before = scan.KERNEL.launches
+    assert cli.main(["spgemm", f, f, "--strategy", strategy, "--out", out]) == 0
+    assert scan.KERNEL.launches > before
+    a = read_mtx(f)
+    want = spgemm_scipy(a, a.transpose())
+    assert_csr_allclose(read_mtx(out).to_csr(), want, rtol=RTOL, atol=ATOL)
+    assert f"nnz: {want.nnz}" in capsys.readouterr().out
+
+
+def test_timers_on_card(cuda):
+    from outerspace_tpu_torch.perf import microbench
+    from outerspace_tpu_torch.perf.timer import device_sync, result_device, time_device
+
+    x = torch.rand(1 << 22, device=cuda)
+    assert result_device([(x,)]) == x.device
+    device_sync({"x": x})
+    s = time_device(lambda: torch.sort(x), reps=3)
+    assert 0 < s < 0.1
+    res = microbench.suite(p=8192, e=2048, m=256, k=2, device=str(cuda))
+    assert len(res) == 10 and all(np.isfinite(v) and v > 0 for v in res.values())

@@ -3,9 +3,11 @@ import, every module of ``outerspace_tpu_torch`` imports, the SpGEMM
 main path runs on the CPU (gather, tiles, flat and "auto", with the
 native planner core), triangles are counted by both routes, a
 ``SparseMLP`` serves one forward with the committed weights, Markov
-clustering runs through its staged chain and its host loop, and the NN
+clustering runs through its staged chain and its host loop, the NN
 pipeline takes a training step, prunes, exports and trains through the
-``nn`` CLI; and no source of the port names either."""
+``nn`` CLI, and the CLI's ``spgemm`` (one operand gzipped) and ``graph
+triangles`` run with a ``.gz`` file read by the native reader; and no
+source of the port names either."""
 
 import os
 import subprocess
@@ -105,6 +107,23 @@ with tempfile.TemporaryDirectory() as d:
         assert cli.main(["nn", "--mode", "train", "--device", "cpu", "--data", "synthetic",
                          "--num_epochs", "1", "--saved_model_name", d + "/m.pkl"]) == 0
     assert sorted(load_params(d + "/m.pkl")) == ["Dense_0", "Dense_1", "Dense_2"]
+# the command line's spgemm and graph, and a .gz file through the native reader
+import gzip, shutil
+from outerspace_tpu_torch.formats import read_mtx, write_mtx
+with tempfile.TemporaryDirectory() as d:
+    write_mtx(d + "/t.mtx", t)
+    with open(d + "/t.mtx", "rb") as src, gzip.open(d + "/t.mtx.gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    back = read_mtx(d + "/t.mtx.gz")
+    assert np.array_equal(back.to_dense(), t.to_dense())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["spgemm", d + "/t.mtx.gz", d + "/t.mtx", "--no-transpose",
+                         "--device", "cpu"]) == 0
+        assert cli.main(["graph", "triangles", d + "/t.mtx", "--device", "cpu"]) == 0
+    text = buf.getvalue()
+    assert f"nnz: {spgemm_scipy(t, t).nnz}" in text
+    assert f"triangles: {triangle_count(t, backend='scipy')} (" in text
 leaked = [m for m in sys.modules if m in Blocker.BLOCKED or m.startswith(("jax.", "outerspace_tpu."))]
 assert not leaked, leaked
 print("isolated", len(names))
@@ -119,7 +138,7 @@ def test_port_imports_and_runs_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("isolated")
-    assert int(out.stdout.split()[1]) >= 36
+    assert int(out.stdout.split()[1]) >= 42
 
 
 def port_sources():
@@ -133,7 +152,7 @@ def port_sources():
 
 def test_port_sources_name_no_jax():
     sources = list(port_sources())
-    assert len(sources) >= 43
+    assert len(sources) >= 51
     for path in sources:
         with open(path, encoding="utf-8") as f:
             text = f.read()
