@@ -12,8 +12,8 @@ checking every result exactly against scipy:
 
 - the windowed-gather pipeline (K1, sort, K2) on rmat14_ef8 and er100k;
 - the tiled pipeline on rmat14_ef8, packed (K3, K1, sort, K2) and with
-  ``packed=False`` (K4, K1, the two-key merge), and on er100k (rebased
-  row parts);
+  ``packed=False`` (K4, K1, the two-key merge), K3 / K4 launched once
+  per row part over its class tables, and on er100k (rebased row parts);
 - the flat strategy (the flat expand, sort, K2) on the three
   ``data/mtx`` fixtures, one with a pinned ``p_pad``;
 - ``strategy="auto"`` on rmat14_ef8 and er100k, with the cost model's
@@ -60,7 +60,10 @@ Each path's kernel launch counts are set to 0 just before its run and
 read just after; a kernel of the path that was not launched fails the
 run. Then it holds each kernel against its plain PyTorch version on the
 card at the main path's shapes (K1 on every gather part and tiled
-residue of both operands), and times the kernels, ``torch.sort``
+residue of both operands; K3 and K4 on every class table one by one and
+on every part of the rmat14_ef8, er100k and MCL tiled plans at once),
+and times the kernels (K3 and K4 one launch per part, and one per table
+beside it), ``torch.sort``
 and ``torch.matmul`` of K5's densified weights (CUDA events, the
 device's time alone and with the host's launches), the plain versions
 (CUDA events), each pipeline's end-to-end split (the host clock; the
@@ -111,6 +114,8 @@ K5_BEFORE_MS = {"MLP1w": "0.3551-0.3603", "LeNet": "0.1444-0.1485"}
 K2_BEFORE_MS = "0.3398-0.3462"
 K1_BEFORE_MS = {"gather": "0.1644 device-only events, 0.1570 profiler",
                 "tiles": "0.1172 profiler"}
+K34_BEFORE_MS = ("K3 0.0447 device-only events / 0.3633 with the host's launches in 9, "
+                 "K4 0.0552 / 0.4000 in 9")
 
 
 def _phase(name: str, t0: float) -> None:
@@ -296,22 +301,24 @@ def _profile_line(torch, label, fn, top: int = 0) -> dict:
     return {k: ms for k, (ms, _) in by.items()}
 
 
-def _expand_bytes(np, sched, out_bytes: int) -> int:
-    """Bytes K3 / K4 must move for one class table: each task's table row
-    (16 B, padding tasks included), each distinct A slice's live
-    elements and each distinct live B lane once (8 B each), and
-    ``out_bytes`` per output slot of the padded table."""
-    _, first = np.unique(sched.a_start, return_index=True)
-    a_elems = int(sched.a_len[first].sum())
+def _expand_bytes(np, sched, out_bytes: int) -> dict:
+    """Bytes K3 / K4 read and write for one class table, each once:
+    "tasks", every task row (16 B, padding tasks included: the kernel
+    reads each to learn its masks); "a", the (row, value) pair (8 B) of
+    each live A element of each task with a live lane (the tables hold
+    an A slice per task); "b", the (col, value) pair of each distinct
+    live B lane; "out", ``out_bytes`` per output slot of the padded
+    table. The group's descriptor travels in the launch's parameters."""
+    live = sched.b_hi > sched.b_lo
+    a_elems = int(sched.a_len[live].sum())
     starts = sched.b_block.astype(np.int64) * 128 + sched.b_lo
     ends = sched.b_block.astype(np.int64) * 128 + np.maximum(sched.b_hi, sched.b_lo)
     edges = np.zeros((int(sched.b_block.max()) + 1) * 128 + 1, np.int64)
     np.add.at(edges, starts, 1)
     np.add.at(edges, ends, -1)
     b_lanes = int((np.cumsum(edges)[:-1] > 0).sum())
-    return 16 * sched.ntasks_padded + 8 * (a_elems + b_lanes) + out_bytes * (
-        sched.padded_heavy
-    )
+    return {"tasks": 16 * sched.ntasks_padded, "a": 8 * a_elems, "b": 8 * b_lanes,
+            "out": out_bytes * sched.padded_heavy}
 
 
 def _k1_bytes(groups: int, nab8: int, nbb8: int, slots: int) -> int:
@@ -394,15 +401,15 @@ def _csr_equal(np, got, want, label: str) -> None:
 
 def _stage1_launches(tplan) -> dict:
     """K1, K2 and K3 launches of one first squaring over ``tplan``: per
-    gather part K1 and K2; per tiled part K2, K1 on a residue and K3 per
-    class table."""
+    gather part K1 and K2; per tiled part K2, K1 on a residue and K3 once
+    over its class tables."""
     from outerspace_tpu_torch.ops.gather_pipeline import GatherPipelinePlan
 
     if isinstance(tplan, GatherPipelinePlan):
         return {"K1": len(tplan.parts), "K2": len(tplan.parts), "K3": 0}
     parts = [tp for _, _, tp in tplan.parts] if hasattr(tplan, "parts") else [tplan]
     return {"K1": sum(1 for tp in parts if tp.gather_ngroups), "K2": len(parts),
-            "K3": sum(len(tp.class_tables()) for tp in parts)}
+            "K3": sum(tp.group is not None for tp in parts)}
 
 
 def _k1_calls(tplan) -> list:
@@ -435,6 +442,44 @@ def _k1_equal_plain(torch, gexpand, calls, label: str) -> float:
                                f"bit-equal): {int((key != key_p).sum())} keys differ")
         err = max(err, float((val - val_p).abs().max()))
     return err
+
+
+def _grouped_equal_plain(torch, expand, tplan, label: str) -> tuple[int, float, float]:
+    """The grouped K3 and K4 (one launch over a part's class tables)
+    against their plain versions on every part of ``tplan`` with class
+    tables, bit for bit; returns (parts checked, K3's values' max |err|,
+    K4's)."""
+    parts = tplan.parts if hasattr(tplan, "parts") else [(0, 0, tplan)]
+    checked, e3, e4 = 0, 0.0, 0.0
+    for lo, hi, tp in parts:
+        g = tp.group
+        if g is None:
+            continue
+
+        def bufs(*dtypes):
+            return [torch.empty(g.slots, dtype=dt, device=g.tasks.device) for dt in dtypes]
+
+        k3, k3p = bufs(torch.int32, torch.float32), bufs(torch.int32, torch.float32)
+        k4, k4p = (bufs(torch.int32, torch.int32, torch.float32) for _ in range(2))
+        expand.expand_part_packed(g, n_cols=tp.n, out_keys=k3[0], out_vals=k3[1])
+        expand.expand_part_packed_plain(g, n_cols=tp.n, out_keys=k3p[0], out_vals=k3p[1])
+        expand.expand_part_coords(g, sentinel_row=tp.m, out_rows=k4[0], out_cols=k4[1],
+                                  out_vals=k4[2])
+        expand.expand_part_coords_plain(g, sentinel_row=tp.m, out_rows=k4p[0], out_cols=k4p[1],
+                                        out_vals=k4p[2])
+        torch.cuda.synchronize()
+        for name, got, want in (("K3", k3, k3p), ("K4", k4, k4p)):
+            for gt, wt in zip(got, want):
+                if not torch.equal(gt.view(torch.int32), wt.view(torch.int32)):
+                    raise RuntimeError(
+                        f"the grouped {name} disagrees with its plain version on {label}, rows "
+                        f"[{lo}, {hi}) (classes {g.layout}): "
+                        f"{int((gt.view(torch.int32) != wt.view(torch.int32)).sum())} slots "
+                        f"differ; want bit-equal")
+        e3 = max(e3, float((k3[1] - k3p[1]).abs().max()))
+        e4 = max(e4, float((k4[2] - k4p[2]).abs().max()))
+        checked += 1
+    return checked, e3, e4
 
 
 def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
@@ -607,10 +652,17 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
                 raise RuntimeError(f"K3 disagrees with its plain version on the MCL tiled first "
                                    f"squaring (tile_a={sched.tile_a}; want bit-equal)")
             k3_mcl_err = max(k3_mcl_err, float((got_k3[1] - want_k3[1]).abs().max()))
+    checked, e3, k4_mcl_err = _grouped_equal_plain(torch, expand, tiled["tplan"],
+                                                   "the MCL tiled first squaring")
+    k3_mcl_err = max(k3_mcl_err, e3)
+    if checked != tiled_counts["K3"]:
+        raise RuntimeError(f"the tiled first squaring launched K3 {tiled_counts['K3']} times for "
+                           f"{checked} parts with class tables; want once per part")
     print("K1 and K3 == plain bit for bit on the MCL first squarings: "
           + ", ".join(f"K1 {label} ({len(calls)} calls)" for label, calls in k1_mcl.items())
-          + f", K3 on {tiled_counts['K3']} tables (values max |err| K1 {k1_mcl_err:.3e}, "
-          f"K3 {k3_mcl_err:.3e})")
+          + f", K3 on the tiled plan's {sum(len(tp.class_tables()) for _, _, tp in tparts)} "
+          f"tables one by one and the grouped K3 and K4 on its {checked} parts (values max "
+          f"|err| K1 {k1_mcl_err:.3e}, K3 {k3_mcl_err:.3e}, K4 {k4_mcl_err:.3e})")
     print(f"mcl fallbacks exact: square_device of the stage-1 flow == scipy; fused and stepwise "
           f"chains from it, elem_pad 4096 (ok false, stepwise, budgets doubled) == scipy's MCL; "
           f"tiled first squaring ({len(tparts)} parts, launches "
@@ -695,7 +747,8 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     # traces: after a trace this large, the next traces in the process
     # dropped device activity
     return {"K1": counts["K1"], "K2": counts["K2"], "run": lambda: graph.mcl_run(prep),
-            "K1 err": k1_mcl_err, "K3 err": k3_mcl_err, "clusters": len(want_clusters)}
+            "K1 err": k1_mcl_err, "K3 err": k3_mcl_err, "K4 err": k4_mcl_err,
+            "clusters": len(want_clusters)}
 
 
 def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want: int) -> dict:
@@ -1308,11 +1361,18 @@ def main() -> int:
         raise RuntimeError("rmat14_ef8 tiles: expected a row-parts plan")
     print(f"rmat14_ef8 tiled plan: {len(tplan.parts)} parts, merge_pad {tplan.merge_pad}, "
           f"rebased {tplan.rebased}")
+    grouped = sum(tp.group is not None for _, _, tp in tplan.parts)
+    if (tiles["K3"], coords["K4"]) != (grouped, grouped):
+        raise RuntimeError(f"rmat14_ef8 tiles launched K3 {tiles['K3']} and K4 {coords['K4']} "
+                           f"times; want once per part with class tables ({grouped})")
     tables = []
     for lo, hi, tp in tplan.parts:
         print(f"  rows [{lo}, {hi}): tasks per class "
               f"{[(s.tile_a, s.ntasks, s.ntasks_padded) for s in tp.class_plan.classes]}, "
-              f"gather groups {tp.gather_ngroups}, stream {tp.padded_total}")
+              f"gather groups {tp.gather_ngroups}, stream {tp.padded_total}, group "
+              f"{tp.group.layout if tp.group else None} "
+              f"({tp.group.desc[:, 5].tolist() + [tp.group.slots // 1024] if tp.group else []} "
+              f"unit offsets)")
         for sched, d in tp.class_tables():
             args = tuple(d[k] for k in ("tasks", "a_rows_t", "a_vals_t", "b_cols_blk", "b_vals_blk"))
             tables.append((sched, args, tp.n, tp.m))
@@ -1330,9 +1390,20 @@ def main() -> int:
         k1_err = max(k1_err, _k1_equal_plain(torch, gexpand, calls, label))
     print("K1 == plain bit for bit on " + ", ".join(
         f"{label} ({len(calls)} calls)" for label, calls in k1_other.items()))
+    k3g_err = k4g_err = 0.0
+    grouped_checked = {}
+    for label, plan_ in (("rmat14_ef8 tiles", tplan), ("er100k tiles", tplan2)):
+        checked, e3, e4 = _grouped_equal_plain(torch, expand, plan_, label)
+        grouped_checked[label] = checked
+        k3g_err, k4g_err = max(k3g_err, e3), max(k4g_err, e4)
+    if not grouped_checked["rmat14_ef8 tiles"]:
+        raise RuntimeError("rmat14_ef8 tiles: no part with class tables to check")
+    print("the grouped K3 and K4 == plain bit for bit on every part with class tables: "
+          + ", ".join(f"{label} {n} parts" for label, n in grouped_checked.items())
+          + f" (values max |err| K3 {k3g_err:.3e}, K4 {k4g_err:.3e})")
     del tplan2
 
-    k3_err = k4_err = 0.0
+    k3_err, k4_err = k3g_err, k4g_err
     for sched, args, n_cols, sentinel in tables:
         ta = sched.tile_a
         got = expand.expand_tiles_packed(*args, tile_a=ta, n_cols=n_cols)
@@ -1408,11 +1479,25 @@ def main() -> int:
         return lambda: [fn(k, v, pad, n_cols=plan.n, sentinel_row=plan.m)
                         for k, v, pad in k2_in]
 
-    def run_k3(fn):
+    def run_k3(fn):  # the earlier route: one launch per (part, class) table
         return lambda: [fn(*args, tile_a=s.tile_a, n_cols=n) for s, args, n, _ in tables]
 
     def run_k4(fn):
         return lambda: [fn(*args, tile_a=s.tile_a, sentinel_row=m) for s, args, _, m in tables]
+
+    # the pipeline's route: one launch per part over its class tables,
+    # into buffers allocated once (the pipeline writes its part stream)
+    groups = [(tp.group, tp.n, tp.m) for _, _, tp in tplan.parts if tp.group is not None]
+    g_out = [[torch.empty(g.slots, dtype=dt, device=dev)
+              for dt in (torch.int32, torch.int32, torch.float32)] for g, _, _ in groups]
+
+    def run_k3g(fn):
+        return lambda: [fn(g, n_cols=n, out_keys=o[0], out_vals=o[2])
+                        for (g, n, _), o in zip(groups, g_out)]
+
+    def run_k4g(fn):
+        return lambda: [fn(g, sentinel_row=m, out_rows=o[0], out_cols=o[1], out_vals=o[2])
+                        for (g, _, m), o in zip(groups, g_out)]
 
     keys_raw = [gexpand.expand_gather(*args, b_win=p.b_win)[0] for args, p in k1_in]
     all_k5 = [c for calls in k5_calls.values() for c in calls]
@@ -1422,20 +1507,23 @@ def main() -> int:
     # plain versions synchronise inside, so only the latter
     runs = {"K1": run_k1(gexpand.expand_gather), "K2": run_k2(scan.merge_epilogue_scan),
             "torch.sort": lambda: [torch.sort(k) for k in keys_raw],
-            "K3": run_k3(expand.expand_tiles_packed), "K4": run_k4(expand.expand_tiles_coords),
+            "K3": run_k3g(expand.expand_part_packed), "K4": run_k4g(expand.expand_part_coords),
+            "K3 per table": run_k3(expand.expand_tiles_packed),
+            "K4 per table": run_k4(expand.expand_tiles_coords),
             "K5": lambda: [spmm.spmm_blockell_device(*c) for c in all_k5],
             "torch.matmul": lambda: [torch.matmul(w, c[2]) for w, c in zip(dense_ws, all_k5)]}
     spin = _spin_cycles(torch)
     dev_ms = {k: _device_ms(torch, fn, spin) for k, fn in runs.items()}
     call_ms = {k: _median_ms(torch, fn) for k, fn in runs.items()}
-    k1_ms, k2_ms, sort_ms, k3_ms, k4_ms, k5_ms, k5_lib_ms = dev_ms.values()
+    k1_ms, k2_ms, sort_ms, k3_ms, k4_ms, k5_ms, k5_lib_ms = (
+        dev_ms[k] for k in ("K1", "K2", "torch.sort", "K3", "K4", "K5", "torch.matmul"))
     run_k1_tiles = lambda: [gexpand.expand_gather(*args, b_win=b) for args, b in k1_tiles_in]
     k1_tiles_ms = _device_ms(torch, run_k1_tiles, spin)
     call_ms["K1 tiles residue"] = _median_ms(torch, run_k1_tiles)
     k1_plain_ms = _median_ms(torch, run_k1(gexpand.expand_gather_plain), reps=3, warmup=1)
     k2_plain_ms = _median_ms(torch, run_k2(scan.merge_epilogue_plain), reps=3, warmup=1)
-    k3_plain_ms = _median_ms(torch, run_k3(expand.expand_tiles_packed_plain), reps=3, warmup=1)
-    k4_plain_ms = _median_ms(torch, run_k4(expand.expand_tiles_coords_plain), reps=3, warmup=1)
+    k3_plain_ms = _median_ms(torch, run_k3g(expand.expand_part_packed_plain), reps=3, warmup=1)
+    k4_plain_ms = _median_ms(torch, run_k4g(expand.expand_part_coords_plain), reps=3, warmup=1)
     k5_plain_ms = _median_ms(torch, lambda: [spmm.spmm_blockell_plain(*c[:3]) for c in all_k5],
                              reps=3, warmup=1)
     k5_layer_ms = [_device_ms(torch, lambda c=c: spmm.spmm_blockell_device(*c), spin)
@@ -1456,8 +1544,10 @@ def main() -> int:
                          for args, _ in k1_tiles_in)
     k2_bytes = sum(k.numel() * (4 + 4 + 4 + 4 + 4 + 1) + 4 for k, _, _ in k2_in)
     tile_products = sum(s.heavy_p for s, _, _, _ in tables)
-    k3_bytes = sum(_expand_bytes(np, s, 8) for s, _, _, _ in tables)
-    k4_bytes = sum(_expand_bytes(np, s, 12) for s, _, _, _ in tables)
+    k3_parts = {k: sum(_expand_bytes(np, s, 8)[k] for s, _, _, _ in tables)
+                for k in ("tasks", "a", "b", "out")}
+    k3_bytes = sum(k3_parts.values())
+    k4_bytes = k3_bytes + 4 * sum(s.padded_heavy for s, _, _, _ in tables)
     k1_bound, k1_by = _bound(k1_bytes, plan.flops)
     k1_tiles_bound = _bound(k1_tiles_bytes, 0)[0]
     k2_bound, k2_by = _bound(k2_bytes, plan.flops)
@@ -1468,15 +1558,21 @@ def main() -> int:
     print(f"rmat14_ef8 gather streams: {len(k1_in)} parts, {n_slots} slots "
           f"({plan.flops} real products)")
     pad_task_slots = sum((s.ntasks_padded - s.ntasks) * s.tile_a * 128 for s, _, _, _ in tables)
-    print(f"rmat14_ef8 tile tables: {len(tables)}, {tile_slots} slots "
+    print(f"rmat14_ef8 tile tables: {len(tables)} in {len(groups)} groups, {tile_slots} slots "
           f"({tile_products} real products; {pad_task_slots} slots of padding tasks); "
-          f"K3 {k3_bytes} B, K4 {k4_bytes} B to move")
+          f"K3 moves {k3_bytes} B (reads {k3_parts['tasks']} B of task rows, {k3_parts['a']} of "
+          f"A, {k3_parts['b']} of B; writes {k3_parts['out']}), K4 {k4_bytes} B (4 B more per "
+          f"slot written)")
     print("device time by CUDA events, ms (plain versions: each call, host included):")
     print(f"K1 {k1_ms:.4f} ms/run (plain {k1_plain_ms:.4f}, bound {k1_bound:.4f}); "
           f"K2 {k2_ms:.4f} ms/run (plain {k2_plain_ms:.4f}, bound {k2_bound:.4f}); "
           f"torch.sort {sort_ms:.4f} ms/run")
-    print(f"K3 {k3_ms:.4f} ms/run (plain {k3_plain_ms:.4f}, bound {k3_bound:.4f}); "
-          f"K4 {k4_ms:.4f} ms/run (plain {k4_plain_ms:.4f}, bound {k4_bound:.4f})")
+    print(f"K3 {k3_ms:.4f} ms/run in {len(groups)} launches, one per part (plain "
+          f"{k3_plain_ms:.4f}, bound {k3_bound:.4f}, {100 * k3_bound / k3_ms:.1f}% of it; one "
+          f"launch per table: {dev_ms['K3 per table']:.4f} in {len(tables)}); K4 {k4_ms:.4f} "
+          f"ms/run in {len(groups)} (plain {k4_plain_ms:.4f}, bound {k4_bound:.4f}, "
+          f"{100 * k4_bound / k4_ms:.1f}%; per table {dev_ms['K4 per table']:.4f}); before the "
+          f"redesign, on an NVIDIA H100 80GB HBM3 at 700 W: {K34_BEFORE_MS}")
     # K5: the nominal work (2·bm·bn·N_pad flop per valid slot, every X row
     # of every stored block) is no floor for a kernel that skips empty
     # columns; its bound is the work these inputs need (_k5_real_work)
@@ -1636,7 +1732,7 @@ def main() -> int:
     # one trace for the four kernels (each profiler session adds time),
     # each run once at the main path's shapes; the split is by name
     kernel_runs = (run_k1(gexpand.expand_gather), run_k2(scan.merge_epilogue_scan),
-                   run_k3(expand.expand_tiles_packed), run_k4(expand.expand_tiles_coords),
+                   run_k3g(expand.expand_part_packed), run_k4g(expand.expand_part_coords),
                    lambda: [spmm.spmm_blockell_device(*c) for c in all_k5])
     alone = _profile_line(torch, "K1, K2, K3, K4 alone, one run each; K5 one layer set",
                           lambda: [fn() for fn in kernel_runs])
@@ -1682,6 +1778,7 @@ def main() -> int:
     for k in ("K1", "K2"):  # the MCL path's warm run launches them too
         launches[k] += mcl_launches[k]
     k1_err, k3_err = max(k1_err, mcl_launches["K1 err"]), max(k3_err, mcl_launches["K3 err"])
+    k4_err = max(k4_err, mcl_launches["K4 err"])
     record = {"kernels": [
         row("K1 gexpand (windowed-gather expand)", "cuda",
             "outerspace_tpu_torch/csrc/gexpand.cu", "outerspace_tpu/ops/pallas/gexpand.py:60",
@@ -1689,10 +1786,12 @@ def main() -> int:
         row("K2 scan (merge epilogue)", "cuda",
             "outerspace_tpu_torch/csrc/scan.cu", "outerspace_tpu/ops/pallas/scan.py:57",
             "K2", k2_err, k2_ms, k2_plain_ms, k2_bound, k2_by, sort_ms),
-        row("K3 expand_tiles_packed (dense-tile expand, packed keys)", "cuda",
+        row("K3 expand_part_packed (dense-tile expand, packed keys; one launch per row part)",
+            "cuda",
             "outerspace_tpu_torch/csrc/expand.cu", "outerspace_tpu/ops/pallas/expand.py:45",
             "K3", k3_err, k3_ms, k3_plain_ms, k3_bound, k3_by, None),
-        row("K4 expand_tiles_coords (dense-tile expand, coordinates)", "cuda",
+        row("K4 expand_part_coords (dense-tile expand, coordinates; one launch per row part)",
+            "cuda",
             "outerspace_tpu_torch/csrc/expand.cu", "outerspace_tpu/ops/pallas/expand.py:87",
             "K4", k4_err, k4_ms, k4_plain_ms, k4_bound, k4_by, None),
         row("K5 spmm_blockell_device (block-ELL SpMM)", "cuda",

@@ -1,23 +1,24 @@
 #!/usr/bin/env python3
-"""Time variants of K1 (``csrc/gexpand.cu``), K2 (``csrc/scan.cu``) and K5
-(``csrc/spmm.cu``) on one NVIDIA card, at the shapes ``chip_smoke.py``
-drives: the five gather parts of rmat14_ef8 A² (K1) and their sorted
-streams (K2), and the eight layers of one MLP1w b1024 and one LeNet b256
-forward with the committed weights (K5); and, with ROUTES, the earlier
-routes of ``spgemm``'s host stages beside the committed ones
+"""Time variants of K1 (``csrc/gexpand.cu``), K2 (``csrc/scan.cu``), K3
+(``csrc/expand.cu``) and K5 (``csrc/spmm.cu``) on one NVIDIA card, at
+the shapes ``chip_smoke.py`` drives: the five gather parts of rmat14_ef8
+A² (K1) and their sorted streams (K2), the class tables of its four
+tiled row parts (K3), and the eight layers of one MLP1w b1024 and one
+LeNet b256 forward with the committed weights (K5); and, with ROUTES,
+the earlier routes of ``spgemm``'s host stages beside the committed ones
 (``time_routes``). Run from the repository root:
 
-    python3 kernel_variants.py [K1] [K2] [K5] [ROUTES] [--parent DIR]
+    python3 kernel_variants.py [K1] [K2] [K3] [K5] [ROUTES] [--parent DIR]
 
-Each variant is the kernel's source with some of its constants (or one
-line) replaced, built with the port's ``nvcc`` flags into
-``build/variants/``; ``--parent DIR`` adds the K1 source of the checkout
-at DIR (another tree, e.g. the parent commit unpacked by ``git
+Each variant is the kernel's source with some of its constants (or some
+lines) replaced, built with the port's ``nvcc`` flags into
+``build/variants/``; ``--parent DIR`` adds the K1 and K3 sources of the
+checkout at DIR (another tree, e.g. the parent commit unpacked by ``git
 archive``). A variant that computes the same function is held against
-the plain PyTorch version, K1's bit for bit; one marked "timing only"
-is not, or computes it only on these inputs.
+the plain PyTorch version, K1's and K3's bit for bit; one marked "timing
+only" is not, or computes it only on these inputs.
 It prints each variant's device ms and the card's name and power limit:
-for K1 by CUDA events around the five launches with the host's launch
+for K1 and K3 by CUDA events around the launches with the host's launch
 cost left out (``chip_smoke._device_ms``, median of 10; the gaps between
 the launches count), for K2 and K5 by ``torch.profiler`` (the sum of
 the kernels' durations, mean of 5 runs).
@@ -105,6 +106,95 @@ K2_VARIANTS = (
        "    if (n < 0) {\n      reinterpret_cast<int4*>(rows"),
       ("        if (j < nv) {\n          rows[i0 + j]",
        "        if (j < nv && n < 0) {\n          rows[i0 + j]")], 1024, False),
+)
+
+
+# K3: a persistent grid of k blocks per SM striding over the units, and
+# the units a block takes per pass
+def _persistent(k):
+    return [("    const int grid = (units + kUnroll - 1) / kUnroll;\n",
+             f"""    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int blocks = (units + kUnroll - 1) / kUnroll;
+    const int grid = blocks < sms * {k} ? blocks : sms * {k};
+""")]
+
+
+def _unroll(k):
+    return [("constexpr int kUnroll = 2;", f"constexpr int kUnroll = {k};")]
+
+
+# K3: each unit staged in shared memory and written by TMA bulk stores
+# (cp.async.bulk, 4 KB per array per unit) instead of each thread's
+# 16-byte stores
+_TMA_STORES = [
+    ("// One slot: masked (the sentinels stay) or the product.",
+     """__device__ __forceinline__ void bulk_store(void* dst, const void* src) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(static_cast<unsigned>(__cvta_generic_to_shared(src))),
+                  "r"(kUnitSlots * 4) : "memory");
+}
+
+// One slot: masked (the sentinels stay) or the product."""),
+    ("  const unsigned n = static_cast<unsigned>(last);\n",
+     """  const unsigned n = static_cast<unsigned>(last);
+  __shared__ __align__(128) int4 s_out0[kUnroll][kThreads];
+  __shared__ __align__(128) int4 s_out1[kPacked ? 1 : kUnroll][kThreads];
+  __shared__ __align__(128) float4 s_vals[kUnroll][kThreads];
+"""),
+    ("gridDim.x * kUnroll) {\n",
+     """gridDim.x * kUnroll) {
+    // the last pass's bulk stores must have read the staging buffers
+    if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    __syncthreads();
+"""),
+    ("""      const size_t o = p[k].out + l4;
+      *reinterpret_cast<int4*>(out0 + o) = r0;
+      if (!kPacked) *reinterpret_cast<int4*>(out1 + o) = r1;
+      *reinterpret_cast<float4*>(vals + o) = v;
+    }
+  }
+}""", """      s_out0[k][threadIdx.x] = r0;
+      if (!kPacked) s_out1[k][threadIdx.x] = r1;
+      s_vals[k][threadIdx.x] = v;
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {  // row 0: p[k].out is the unit's first slot
+      for (int k = 0; k < kUnroll && u0 + k < units; ++k) {
+        bulk_store(out0 + p[k].out, s_out0[k]);
+        if (!kPacked) bulk_store(out1 + p[k].out, s_out1[k]);
+        bulk_store(vals + p[k].out, s_vals[k]);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+  }
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}"""),
+]
+
+# K3: (name, replacements in csrc/expand.cu, computes the kernel's
+# function: held bit for bit to plain on every part)
+K3_VARIANTS = (
+    ("K3 as built: one launch per part, blocks of 8 warps, 2 8-row units per block, "
+     "16-byte stores", [], True),
+    ("K3 1 unit per block", _unroll(1), True),
+    ("K3 4 units per block", _unroll(4), True),
+    ("K3 persistent grid, 4 blocks per SM, 2 units per pass", _persistent(4), True),
+    ("K3 persistent grid, 8 blocks per SM, 2 units per pass", _persistent(8), True),
+    ("K3 persistent grid, 4 blocks per SM, 4 units per pass", _persistent(4) + _unroll(4), True),
+    ("K3 TMA bulk stores (4 KB per array per unit), 2 units per block", _TMA_STORES, True),
+    ("K3 TMA bulk stores, persistent grid, 4 blocks per SM", _TMA_STORES + _persistent(4), True),
+    ("K3 streaming stores (st.global.cs, evict first)",
+     [("""      *reinterpret_cast<int4*>(out0 + o) = r0;
+      if (!kPacked) *reinterpret_cast<int4*>(out1 + o) = r1;
+      *reinterpret_cast<float4*>(vals + o) = v;""",
+       """      __stcs(reinterpret_cast<int4*>(out0 + o), r0);
+      if (!kPacked) __stcs(reinterpret_cast<int4*>(out1 + o), r1);
+      __stcs(reinterpret_cast<float4*>(vals + o), v);""")], True),
+    ("K3 sentinels only: no A or B load (timing only)",
+     [("      live[k] = u0 + k < units &&", "      live[k] = false && u0 + k < units &&")], False),
 )
 
 
@@ -375,6 +465,130 @@ def time_k2(torch, dev, plan):
 
 
 
+def time_k3(torch, dev, a, parent=None):
+    """K3's variants on the class tables of rmat14_ef8's (``a``) tiled row
+    parts, one launch per part; the committed kernel also one launch per
+    (part, class) table; with ``parent``, the K3 source of another
+    checkout, one launch per table (its per-task design takes one class
+    at a time)."""
+    import numpy as np
+
+    from outerspace_tpu_torch.ops.kernels import expand
+    from outerspace_tpu_torch.ops.spgemm import plan_tiled_parts, spgemm_padded_tiled_parts
+    from outerspace_tpu_torch.runtime import build
+    from outerspace_tpu_torch.runtime.build import device_args, tensor_ptr
+
+    tplan = plan_tiled_parts(a.to_csc(), a.to_csr(), device=dev)
+    kernel = expand.KERNEL_PACKED
+    spgemm_padded_tiled_parts(tplan)  # loads the committed library
+    groups = [(tp.group, tp.n) for _, _, tp in tplan.parts if tp.group is not None]
+    tables = [(s, d, tp.n) for _, _, tp in tplan.parts for s, d in tp.class_tables()]
+    nbytes = sum(sum(smoke._expand_bytes(np, s, 8).values()) for s, _, _ in tables)
+    bound = smoke._bound(nbytes, sum(s.heavy_p for s, _, _ in tables))[0]
+    slots = sum(g.slots for g, _ in groups)
+    print(f"K3 on {len(groups)} parts, {len(tables)} class tables "
+          f"({[g.layout for g, _ in groups]}), {slots} slots (bound {bound:.4f} ms by bytes):")
+    outs = [(torch.empty(g.slots, dtype=torch.int32, device=dev),
+             torch.empty(g.slots, dtype=torch.float32, device=dev)) for g, _ in groups]
+    wants = []
+    for (g, n), _ in zip(groups, outs):
+        w = (torch.empty(g.slots, dtype=torch.int32, device=dev),
+             torch.empty(g.slots, dtype=torch.float32, device=dev))
+        expand.expand_part_packed_plain(g, n_cols=n, out_keys=w[0], out_vals=w[1])
+        wants.append(w)
+    spin = smoke._spin_cycles(torch, ms=60.0)
+    ms = smoke._device_ms(torch, lambda: [(k.fill_(7), v.fill_(1.0)) for k, v in outs], spin)
+    print(f"  torch fill_ of the same output buffers (reference, {2 * len(outs)} launches): "
+          f"{ms:.4f} ms, {100 * bound / ms:.1f}% of the bound")
+    whole = (torch.empty(slots, dtype=torch.int32, device=dev),
+             torch.empty(slots, dtype=torch.float32, device=dev))
+    ms = smoke._device_ms(torch, lambda: (whole[0].fill_(7), whole[1].fill_(1.0)), spin)
+    print(f"  torch fill_ of two buffers of all {slots} slots (reference, 2 launches): "
+          f"{ms:.4f} ms, {100 * bound / ms:.1f}% of the bound")
+    del whole
+
+    def check(name):
+        torch.cuda.synchronize()
+        for (k, v), (wk, wv) in zip(outs, wants):
+            if not (torch.equal(k, wk) and torch.equal(v.view(torch.int32), wv.view(torch.int32))):
+                raise RuntimeError(f"{name} disagrees with the plain version on a part")
+            k.fill_(0)
+            v.fill_(0.0)
+
+    variants = [v[:2] for v in K3_VARIANTS]
+    parent_name = None
+    if parent is not None:  # built with the rest: one library name each
+        parent_name = f"K3 of the tree at {parent}"
+        variants.append((parent_name, Path(parent) / "outerspace_tpu_torch" / "csrc" / "expand.cu"))
+    libs = build_variants(build, "expand", variants)
+    for name, _, computes in K3_VARIANTS:
+        launch = libs[name].expand_packed_launch
+        launch.argtypes, launch.restype = expand.KERNEL_PACKED.argtypes, ctypes.c_int
+
+        def run(launch=launch, name=name):
+            for (g, n), (k, v) in zip(groups, outs):
+                desc = np.ascontiguousarray(g.desc)
+                err = launch(ctypes.c_void_p(desc.ctypes.data), desc.shape[0],
+                             *map(tensor_ptr, (g.tasks, g.a_rows, g.a_vals, g.b_cols_blk,
+                                               g.b_vals_blk, k, v)), n, *device_args(dev))
+                if err:
+                    raise RuntimeError(f"{name}: CUDA error {err}")
+
+        run()
+        if computes:
+            check(name)
+        ms = smoke._device_ms(torch, run, spin)
+        pipe = ""
+        if computes:  # the tiles device pipeline (expand, sort, K2) with this K3
+            committed = kernel._fn, kernel._lib
+            kernel._fn, kernel._lib = launch, libs[name]
+            try:
+                pipe_ms = smoke._device_ms(torch, lambda: spgemm_padded_tiled_parts(tplan), spin)
+            finally:
+                kernel._fn, kernel._lib = committed
+            pipe = f"; the tiles device pipeline with it {pipe_ms:.4f} ms"
+        print(f"  {name}: {ms:.4f} ms in {len(groups)} launches, "
+              f"{100 * bound / ms:.1f}% of the bound{' (== plain)' if computes else ''}{pipe}")
+    # one launch per (part, class) table: the committed kernel on groups
+    # of one class, and the parent's per-task kernel
+    per_table = [("K3 as built, one launch per table", libs[K3_VARIANTS[0][0]], True)]
+    if parent_name is not None:
+        per_table.append((f"{parent_name}, one launch per table", libs[parent_name], False))
+    t_outs = [(torch.empty(s.padded_heavy, dtype=torch.int32, device=dev),
+               torch.empty(s.padded_heavy, dtype=torch.float32, device=dev)) for s, _, _ in tables]
+    for name, lib, grouped in per_table:
+        launch = lib.expand_packed_launch
+        launch.restype = ctypes.c_int
+        launch.argtypes = (expand.KERNEL_PACKED.argtypes if grouped else
+                           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_int, ctypes.c_void_p])
+
+        def run(launch=launch, grouped=grouped, name=name):
+            for (s, d, n), (k, v) in zip(tables, t_outs):
+                args = [tensor_ptr(d[x]) for x in
+                        ("tasks", "a_rows_t", "a_vals_t", "b_cols_blk", "b_vals_blk")]
+                if grouped:
+                    desc = expand.group_descriptor([(s.tile_a, s.ntasks_padded)])
+                    err = launch(ctypes.c_void_p(desc.ctypes.data), 1, *args, tensor_ptr(k),
+                                 tensor_ptr(v), n, *device_args(dev))
+                else:
+                    err = launch(*args, tensor_ptr(k), tensor_ptr(v), s.ntasks_padded,
+                                 s.tile_a, n, *device_args(dev))
+                if err:
+                    raise RuntimeError(f"{name}: CUDA error {err}")
+
+        run()
+        torch.cuda.synchronize()
+        for (s, d, n), (k, v) in zip(tables, t_outs):
+            wk, wv = expand.expand_tiles_packed_plain(
+                *(d[x] for x in ("tasks", "a_rows_t", "a_vals_t", "b_cols_blk", "b_vals_blk")),
+                tile_a=s.tile_a, n_cols=n)
+            if not (torch.equal(k, wk) and torch.equal(v.view(torch.int32), wv.view(torch.int32))):
+                raise RuntimeError(f"{name} disagrees with the plain version on a table")
+        ms = smoke._device_ms(torch, run, spin)
+        print(f"  {name}: {ms:.4f} ms in {len(tables)} launches, "
+              f"{100 * bound / ms:.1f}% of the bound (== plain)")
+
+
 def time_k5(torch, dev):
     """K5's variants on the layers of one MLP1w and one LeNet forward."""
     import numpy as np
@@ -432,7 +646,7 @@ def time_k5(torch, dev):
 
 
 def main(argv) -> int:
-    """``argv``: what to time (K1, K2, K5, ROUTES), all by default, and
+    """``argv``: what to time (K1, K2, K3, K5, ROUTES), all by default, and
     ``--parent DIR`` (see the module's docstring)."""
     import torch
 
@@ -446,7 +660,7 @@ def main(argv) -> int:
     if "--parent" in argv:
         i = argv.index("--parent")
         parent, argv = argv[i + 1], argv[:i] + argv[i + 2:]
-    which = argv or ["K1", "K2", "K5", "ROUTES"]
+    which = argv or ["K1", "K2", "K3", "K5", "ROUTES"]
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {smoke._card_line()}")
@@ -456,6 +670,8 @@ def main(argv) -> int:
         time_k1(torch, dev, plan, parent)
     if "K2" in which:
         time_k2(torch, dev, plan)
+    if "K3" in which:
+        time_k3(torch, dev, a, parent)
     if "K5" in which:
         time_k5(torch, dev)
     if "ROUTES" in which:

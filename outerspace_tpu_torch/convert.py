@@ -42,14 +42,16 @@ def _copy(x):
     return np.array(x) if isinstance(x, np.ndarray) else x
 
 
-def tiled_plan_from_arrays(plan, device="cpu"):
+def tiled_plan_from_arrays(plan, device="cuda"):
     """The port's ``TiledPlan`` or ``TiledPartsPlan`` from another
     package's tiled plan of the same layout (for example the JAX
-    package's): the host schedules and the staged arrays are copied
-    field by field, array by array, so both packages can run one plan
-    and their streams can be compared."""
+    package's), staged on ``device``: the host schedules and the staged
+    arrays are copied field by field, array by array, so both packages
+    can run one plan and their streams can be compared. The class
+    tables are joined into the group that K3 / K4 launch once per part,
+    as ``plan_tiled`` joins its own."""
     from outerspace_tpu_torch.ops.kernels.gexpand import group_search_bits
-    from outerspace_tpu_torch.ops.spgemm import TiledPartsPlan, TiledPlan
+    from outerspace_tpu_torch.ops.spgemm import TiledPartsPlan, TiledPlan, group_classes
     from outerspace_tpu_torch.ops.symbolic import ExpansionPlan
     from outerspace_tpu_torch.sched.planner import ClassPlan, OuterProductSchedule
 
@@ -70,7 +72,11 @@ def tiled_plan_from_arrays(plan, device="cpu"):
         np.array(cp.edge_k), np.array(cp.edge_jb), np.array(cp.edge_len),
     )
     src = plan.device_args
-    dev = {"classes": [None if d is None else _tensors(d, device) for d in src["classes"]]}
+    tables = [None if d is None else {k: np.array(v) for k, v in d.items()}
+              for d in src["classes"]]
+    b = next((t for t in tables if t is not None), {"b_cols_blk": None, "b_vals_blk": None})
+    group, staged = group_classes(classes, tables, b["b_cols_blk"], b["b_vals_blk"], device)
+    dev = {"classes": staged}
     if "gather" in src:
         dev["gather"] = _tensors(src["gather"], device)
         dev["gather"]["group_bits"] = torch.from_numpy(
@@ -94,6 +100,7 @@ def tiled_plan_from_arrays(plan, device="cpu"):
         gather_p_real=plan.gather_p_real,
         gather_b_win=plan.gather_b_win,
         gather_call_bits=plan.gather_call_bits,
+        group=group,
     )
 
 

@@ -108,6 +108,22 @@ def _check(bases, table, a_pack, b_pack, group_bits, b_win):
         raise ValueError(f"b_win {b_win} outside the B super-window")
 
 
+def _check_out(out, n: int, dev) -> None:
+    """``out`` must be (int32, float32) contiguous 1-D views of ``n``
+    slots on ``dev``, 16-byte aligned on CUDA (the kernel stores int4)."""
+    if len(out) != 2:
+        raise ValueError("out must be a (keys, vals) pair")
+    for name, t, dtype in zip(("keys", "vals"), out, (torch.int32, torch.float32)):
+        if t.dtype != dtype:
+            raise TypeError(f"out {name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != (n,) or not t.is_contiguous():
+            raise ValueError(f"out {name} must be a contiguous view of {n} slots, got {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"out {name} is on {t.device}, table on {dev}")
+        if dev.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"out {name} must start 16-byte aligned")
+
+
 def expand_gather(
     bases: torch.Tensor,  # int32[2·G]: (a_base8, b_base8) per group
     table: torch.Tensor,  # int32[G, 8, 128] per-subtile table
@@ -116,20 +132,33 @@ def expand_gather(
     group_bits: torch.Tensor,  # int32[G] owner-search depth per group
     *,
     b_win: int,
+    out: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Flat (keys int32, vals float32) of length G·8·1024.
+    """Flat (keys int32, vals float32) of length G·8·1024, written into
+    ``out`` (contiguous views of that length, e.g. slices of a merge
+    stream) when it is given, else into new tensors.
 
     CUDA tensors launch ``csrc/gexpand.cu``; CPU tensors run
     :func:`expand_gather_plain`; any other device raises."""
     _check(bases, table, a_pack, b_pack, group_bits, b_win)
     dev = table.device
+    n = table.shape[0] * GROUP_SUBS * SUB_P
+    if out is not None:
+        _check_out(out, n, dev)
     if dev.type == "cpu":
-        return expand_gather_plain(bases, table, a_pack, b_pack, group_bits, b_win=b_win)
+        got = expand_gather_plain(bases, table, a_pack, b_pack, group_bits, b_win=b_win)
+        if out is None:
+            return got
+        for o, x in zip(out, got):
+            o.copy_(x)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"expand_gather runs on cuda or cpu, not {dev}")
     g = table.shape[0]
-    keys = torch.empty(g * GROUP_SUBS * SUB_P, dtype=torch.int32, device=dev)
-    vals = torch.empty(g * GROUP_SUBS * SUB_P, dtype=torch.float32, device=dev)
+    if out is None:
+        out = (torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty(n, dtype=torch.float32, device=dev))
+    keys, vals = out
     KERNEL.launch(
         tensor_ptr(bases), tensor_ptr(table), tensor_ptr(a_pack),
         tensor_ptr(b_pack), tensor_ptr(group_bits), tensor_ptr(keys),

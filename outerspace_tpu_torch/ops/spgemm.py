@@ -10,8 +10,10 @@ single-device paths run:
   (``spgemm_padded``); the tiled strategy's light residue runs the same
   expand when m·n > 2³²;
 - the tiled strategy: dense-tile classes expanded by K3 (packed keys)
-  or K4 (coordinates), the residue by K1, then one merge; with row
-  parts (``plan_tiled_parts``), rebased to part-local keys past 2³².
+  or K4 (coordinates), one launch per row part over all its classes,
+  the residue by K1, each written in place into the part's merge
+  stream, then one merge; with row parts (``plan_tiled_parts``),
+  rebased to part-local keys past 2³².
 
 Keys pack (row, col) into one int32 ``row·n + col − 2³¹`` with int32
 wraparound, so signed int32 order equals the unsigned order of
@@ -33,10 +35,12 @@ import torch
 from outerspace_tpu_torch.formats.coo import COO, INDEX_DTYPE, VALUE_DTYPE
 from outerspace_tpu_torch.formats.csr import CSC, CSR
 from outerspace_tpu_torch.ops.kernels.expand import (
+    TileGroup,
     b_blocks_host,
-    expand_tiles_coords,
-    expand_tiles_packed,
+    expand_part_coords,
+    expand_part_packed,
     schedule_to_host,
+    stage_group,
 )
 from outerspace_tpu_torch.ops.kernels.gexpand import expand_gather, gather_plan_to_host
 from outerspace_tpu_torch.ops.kernels.scan import merge_epilogue_scan
@@ -301,11 +305,13 @@ def empty_csr(m: int, n: int) -> CSR:
 class TiledPlan:
     """Host plan of the tiled pipeline, staged on ``device``.
 
-    ``device_args["classes"]``: per tile class (``TILE_A_CLASSES``) its
-    padded task table and the B blocks (one staged copy shared by every
-    class), or None for an empty class. ``device_args["gather"]``: K1's
-    inputs for the residue (m·n ≤ 2³²). ``device_args["light"]``: the
-    flat expand's inputs for the residue otherwise."""
+    ``group``: the non-empty class tables joined for one K3 / K4 launch
+    (None when every class is empty). ``device_args["classes"]``: per
+    tile class (``TILE_A_CLASSES``) its padded task table, views into
+    ``group``, and the B blocks, or None for an empty class.
+    ``device_args["gather"]``: K1's inputs for the residue (m·n ≤ 2³²).
+    ``device_args["light"]``: the flat expand's inputs for the residue
+    otherwise."""
 
     m: int
     n: int
@@ -321,6 +327,7 @@ class TiledPlan:
     gather_p_real: int = 0
     gather_b_win: int = 0
     gather_call_bits: tuple[int, ...] | None = None
+    group: TileGroup | None = None
 
     @property
     def padded_total(self) -> int:
@@ -335,8 +342,19 @@ class TiledPlan:
         ]
 
 
-def _host_to_device(host: dict, device) -> dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+def group_classes(classes, tables, b_cols_blk, b_vals_blk, device):
+    """``(group, per-class tables)``: the host tables of the non-empty
+    classes (``tables[i]``, None for an empty class, as
+    :func:`schedule_to_host` gives them) joined on ``device``
+    (``stage_group``), and each class's table as views into the group,
+    None for an empty class. ``(None, [None, ...])`` when all are
+    empty."""
+    live = [(c.tile_a, t) for c, t in zip(classes, tables) if t is not None]
+    if not live:
+        return None, [None] * len(classes)
+    group = stage_group(live, b_cols_blk, b_vals_blk, device)
+    views = (group.table(c) for c in range(len(live)))
+    return group, [None if t is None else next(views) for t in tables]
 
 
 def plan_tiled(
@@ -357,14 +375,11 @@ def plan_tiled(
 
         waste_limit = best_waste_limit(a_csc, b_csr)
     cp = plan_outer_classes(a_csc, b_csr, waste_limit=waste_limit)
-    classes = [None] * len(cp.classes)
+    group, classes = None, [None] * len(cp.classes)
     if any(c.ntasks for c in cp.classes):
         cols_p, vals_p = b_blocks_host(b_csr.indices, b_csr.data)
-        b_dev = _host_to_device(dict(b_cols_blk=cols_p, b_vals_blk=vals_p), device)
-        classes = [
-            {**_host_to_device(schedule_to_host(c), device), **b_dev} if c.ntasks else None
-            for c in cp.classes
-        ]
+        tables = [schedule_to_host(c) if c.ntasks else None for c in cp.classes]
+        group, classes = group_classes(cp.classes, tables, cols_p, vals_p, device)
     dev = {"classes": classes}
     light_plan = None
     light_pad = 0
@@ -410,14 +425,15 @@ def plan_tiled(
         gather_p_real=gather_p_real,
         gather_b_win=gather_b_win,
         gather_call_bits=gather_call_bits,
+        group=group,
     )
 
 
-def _expand_residue_gather(tplan: TiledPlan):
+def _expand_residue_gather(tplan: TiledPlan, out=None):
     g = tplan.device_args["gather"]
     return expand_gather(
         g["bases"], g["table"], g["a_pack"], g["b_pack"], g["group_bits"],
-        b_win=tplan.gather_b_win,
+        b_win=tplan.gather_b_win, out=out,
     )
 
 
@@ -434,32 +450,40 @@ def _expand_light_packed(
     return torch.where(valid, pack_key_biased(r, c, n_cols), I32_MAX), v
 
 
-def tiled_expand_packed(tplan: TiledPlan) -> tuple[list, list, int]:
-    """The packed expand stage: one K3 launch per non-empty class, K1 on
-    the gather residue, the flat expand on a light residue. Returns
-    ``(keys_l, vals_l, pad_count)``: the stream pieces in order and
-    :func:`tiled_pad_count`."""
-    keys_l, vals_l = [], []
-    for sched, dev in tplan.class_tables():
-        k, v = expand_tiles_packed(
-            dev["tasks"], dev["a_rows_t"], dev["a_vals_t"],
-            dev["b_cols_blk"], dev["b_vals_blk"],
-            tile_a=sched.tile_a, n_cols=tplan.n,
-        )
-        keys_l.append(k)
-        vals_l.append(v)
+def tiled_expand_packed(
+    tplan: TiledPlan, merge_pad: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The packed expand stage, written in place into one stream of
+    ``merge_pad`` slots (default ``tplan.padded_total``): K3 once over
+    every class table at the front, then K1 on the gather residue, the
+    flat expand's light residue, and sentinel slots (INT32_MAX, 0) to
+    the end. Returns ``(keys, vals, pad_count)``: the stream and its
+    sentinel padding, :func:`tiled_pad_count` plus the tail."""
+    total = tplan.padded_total
+    length = total if merge_pad is None else merge_pad
+    if length < total:
+        raise ValueError(f"merge_pad={merge_pad} < part stream {total}")
+    keys = torch.empty(length, dtype=torch.int32, device=tplan.device)
+    vals = torch.empty(length, dtype=torch.float32, device=tplan.device)
+    pos = 0
+    if tplan.group is not None:
+        pos = tplan.group.slots
+        expand_part_packed(tplan.group, n_cols=tplan.n, out_keys=keys[:pos], out_vals=vals[:pos])
     if tplan.gather_ngroups:
-        k, v = _expand_residue_gather(tplan)
-        keys_l.append(k)
-        vals_l.append(v)
+        end = pos + tplan.gather_p_out
+        _expand_residue_gather(tplan, out=(keys[pos:end], vals[pos:end]))
+        pos = end
     if tplan.light_plan is not None:
         k, v = _expand_light_packed(
             **tplan.device_args["light"],
             p_pad=tplan.light_pad, sentinel_row=tplan.m, n_cols=tplan.n,
         )
-        keys_l.append(k)
-        vals_l.append(v)
-    return keys_l, vals_l, tiled_pad_count(tplan)
+        keys[pos:pos + tplan.light_pad].copy_(k)
+        vals[pos:pos + tplan.light_pad].copy_(v)
+        pos += tplan.light_pad
+    keys[pos:].fill_(I32_MAX)
+    vals[pos:].zero_()
+    return keys, vals, tiled_pad_count(tplan) + length - total
 
 
 def tiled_pad_count(tplan: TiledPlan) -> int:
@@ -478,8 +502,8 @@ def spgemm_padded_tiled(
     packed: bool | None = None,
     merge_pad: int | None = None,
 ) -> MergedCOO:
-    """Expand (K3 or K4 per class, K1 or the flat expand on the residue),
-    then merge.
+    """Expand (K3 or K4 once over the class tables, K1 or the flat
+    expand on the residue, all in place into one stream), then merge.
 
     ``packed=None`` packs keys when m·n ≤ 2³². ``merge_pad`` pads the
     packed stream with sentinel slots (counted into ``pad_count``) to the
@@ -494,8 +518,7 @@ def spgemm_padded_tiled(
     if merge_pad is not None and not packed:
         raise ValueError("merge_pad needs packed keys")
     sentinel = tplan.m
-    tables = tplan.class_tables()
-    if not tables and tplan.light_plan is None and not tplan.gather_ngroups:
+    if tplan.group is None and tplan.light_plan is None and not tplan.gather_ngroups:
         dev = tplan.device
         return MergedCOO(
             (tplan.m, tplan.n),
@@ -506,27 +529,20 @@ def spgemm_padded_tiled(
             torch.zeros((), dtype=torch.int32, device=dev),
         )
     if packed:
-        keys_l, vals_l, pad_count = tiled_expand_packed(tplan)
-        key, vals = torch.cat(keys_l), torch.cat(vals_l)
-        if merge_pad is not None:
-            extra = merge_pad - key.shape[0]
-            if extra < 0:
-                raise ValueError(f"merge_pad={merge_pad} < part stream {key.shape[0]}")
-            pad_count += extra
-            key = torch.cat([key, key.new_full((extra,), I32_MAX)])
-            vals = torch.cat([vals, vals.new_zeros(extra)])
+        key, vals, pad_count = tiled_expand_packed(tplan, merge_pad)
         r, c, v, valid, nnz = merge_biased_keys(key, vals, tplan.n, sentinel, pad_count)
         return MergedCOO((tplan.m, tplan.n), r, c, v, valid, nnz)
-    rows_l, cols_l, vals_l = [], [], []
-    for sched, dev in tables:
-        rr, cc, vv = expand_tiles_coords(
-            dev["tasks"], dev["a_rows_t"], dev["a_vals_t"],
-            dev["b_cols_blk"], dev["b_vals_blk"],
-            tile_a=sched.tile_a, sentinel_row=sentinel,
-        )
-        rows_l.append(rr)
-        cols_l.append(cc)
-        vals_l.append(vv)
+    # the coordinate stream, in place: K4 over the classes, then the
+    # residue (K1's keys unpacked, or the flat expand)
+    total = tplan.padded_total
+    rows = torch.empty(total, dtype=torch.int32, device=tplan.device)
+    cols = torch.empty(total, dtype=torch.int32, device=tplan.device)
+    vals = torch.empty(total, dtype=torch.float32, device=tplan.device)
+    pos = 0
+    if tplan.group is not None:
+        pos = tplan.group.slots
+        expand_part_coords(tplan.group, sentinel_row=sentinel,
+                           out_rows=rows[:pos], out_cols=cols[:pos], out_vals=vals[:pos])
     if tplan.gather_ngroups:
         # K1 emits packed keys; unpack them for the two-key merge (the
         # gather residue exists only when m·n ≤ 2³²)
@@ -535,22 +551,18 @@ def spgemm_padded_tiled(
                 "packed=False with a gather residue cannot recover the "
                 "(m-1, n-1) corner at m*n == 2^32; use the packed merge"
             )
-        k, v = _expand_residue_gather(tplan)
+        end = pos + tplan.gather_p_out
+        k, _ = _expand_residue_gather(tplan, out=(rows[pos:end], vals[pos:end]))
         gr, gc = unpack_key_biased(k, tplan.n)
         live = k != I32_MAX
-        rows_l.append(torch.where(live, gr, sentinel))
-        cols_l.append(torch.where(live, gc, 0))
-        vals_l.append(v)
+        cols[pos:end] = torch.where(live, gc, 0)
+        rows[pos:end] = torch.where(live, gr, sentinel)
+        pos = end
     if tplan.light_plan is not None:
-        rr, cc, vv = expand_partial_products(
-            **tplan.device_args["light"], p_pad=tplan.light_pad, sentinel_row=sentinel
-        )
-        rows_l.append(rr)
-        cols_l.append(cc)
-        vals_l.append(vv)
-    r, c, v, valid, nnz = merge_twokey(
-        torch.cat(rows_l), torch.cat(cols_l), torch.cat(vals_l), sentinel
-    )
+        for out, x in zip((rows, cols, vals), expand_partial_products(
+                **tplan.device_args["light"], p_pad=tplan.light_pad, sentinel_row=sentinel)):
+            out[pos:].copy_(x)
+    r, c, v, valid, nnz = merge_twokey(rows, cols, vals, sentinel)
     return MergedCOO((tplan.m, tplan.n), r, c, v, valid, nnz)
 
 

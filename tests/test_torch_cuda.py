@@ -7,6 +7,7 @@ them:
 """
 
 import functools
+import importlib
 import os
 
 import numpy as np
@@ -21,12 +22,18 @@ from outerspace_tpu_torch.nn.data import synthetic_mnist
 from outerspace_tpu_torch.nn.models import make_model
 from outerspace_tpu_torch.nn.sparse_infer import SparseLeNet, SparseMLP
 from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan, spmm
-from outerspace_tpu_torch.ops.spgemm import plan_tiled, spgemm_padded_tiled
+from outerspace_tpu_torch.ops.spgemm import (
+    plan_tiled,
+    plan_tiled_parts,
+    spgemm_padded_tiled,
+    spgemm_padded_tiled_parts,
+)
 
 import torch_cases  # tests/ is on sys.path under pytest
 
 big_shape_pair = functools.partial(torch_cases.big_shape_pair, COO)
 
+spgemm_mod = importlib.import_module("outerspace_tpu_torch.ops.spgemm")
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
 I32_MAX = 2**31 - 1
@@ -404,8 +411,101 @@ def test_unsplit_big_plan_on_card_runs_k4_and_flat_residue(cuda):
     assert tplan.light_plan is not None and tplan.class_tables()
     before = expand.KERNEL_COORDS.launches
     got = spgemm_padded_tiled(tplan).to_csr()
-    assert expand.KERNEL_COORDS.launches == before + len(tplan.class_tables())
+    assert expand.KERNEL_COORDS.launches == before + 1  # once over all the class tables
     assert_csr_allclose(got, spgemm_scipy(a, b), rtol=RTOL, atol=ATOL)
+
+
+def random_group(layout, seed, nblocks=16):
+    """A group of class tables of ``layout`` = [(tile_a, tasks)] on the
+    host, with every mask case and three padding tasks per class."""
+    rng = np.random.default_rng(seed)
+    tables = []
+    for tile_a, ntasks in layout:
+        if ntasks:
+            arrays = [t.numpy() for t in random_tables(tile_a, ntasks, nblocks, seed)[:3]]
+        else:  # an empty class
+            arrays = [np.zeros(0, np.int32), np.zeros((0, tile_a), np.int32),
+                      np.zeros((0, tile_a), np.float32)]
+        tables.append((tile_a, dict(zip(("tasks", "a_rows_t", "a_vals_t"), arrays))))
+    return expand.stage_group(
+        tables, rng.integers(0, 65536, size=(nblocks, 128)).astype(np.int32),
+        rng.normal(size=(nblocks, 128)).astype(np.float32), "cpu")
+
+
+def grouped_match_plain(group, n_cols, sentinel_row, extra=4096):
+    """The grouped K3 and K4 on the card, once each, against their plain
+    versions on the same inputs, bit for bit; slots past the group keep
+    what they held."""
+    def outs(dtypes):
+        return [torch.full((group.slots + extra,), 12345, dtype=dt, device=group.tasks.device)
+                for dt in dtypes]
+
+    before = (expand.KERNEL_PACKED.launches, expand.KERNEL_COORDS.launches)
+    got, want = outs((torch.int32, torch.float32)), outs((torch.int32, torch.float32))
+    expand.expand_part_packed(group, n_cols=n_cols, out_keys=got[0], out_vals=got[1])
+    expand.expand_part_packed_plain(group, n_cols=n_cols, out_keys=want[0], out_vals=want[1])
+    three = (torch.int32, torch.int32, torch.float32)
+    got_c, want_c = outs(three), outs(three)
+    expand.expand_part_coords(group, sentinel_row=sentinel_row, out_rows=got_c[0],
+                              out_cols=got_c[1], out_vals=got_c[2])
+    expand.expand_part_coords_plain(group, sentinel_row=sentinel_row, out_rows=want_c[0],
+                                    out_cols=want_c[1], out_vals=want_c[2])
+    torch.cuda.synchronize()
+    assert (expand.KERNEL_PACKED.launches, expand.KERNEL_COORDS.launches) == (before[0] + 1, before[1] + 1)
+    assert_bit_equal(got + got_c, want + want_c)
+    assert all((g[group.slots:] == 12345).all() for g in got + got_c)
+
+
+@pytest.mark.parametrize("layout", [
+    [(8, 24)], [(128, 12), (8, 40)], [(128, 12), (32, 16), (8, 24)],
+    [(128, 12), (32, 0), (8, 24)], [(16, 12), (64, 12)],
+], ids=["8", "128+8", "128+32+8", "empty_middle", "16+64"])
+def test_grouped_k3_k4_bit_equal_to_plain(cuda, layout):
+    g = random_group(layout, seed=len(layout))
+    g = expand.TileGroup(g.desc, *(t.to(cuda) for t in (
+        g.tasks, g.a_rows, g.a_vals, g.b_cols_blk, g.b_vals_blk)))
+    grouped_match_plain(g, 65536, 65536)
+
+
+def test_grouped_k3_k4_bit_equal_on_a_plan_and_the_stream_in_place(cuda):
+    g = rmat(10, edge_factor=16, seed=1)
+    kw = dict(waste_limit=2.0, nparts=2, min_part_stream=1, budget=10.0)
+    tplan = plan_tiled_parts(g.to_csc(), g.to_csr(), device=cuda, **kw)
+    cpu_plan = plan_tiled_parts(g.to_csc(), g.to_csr(), device="cpu", **kw)
+    assert len(tplan.parts) == 2 and tplan.merge_pad
+    for (_, _, tp), (_, _, cp) in zip(tplan.parts, cpu_plan.parts):
+        assert len(tp.group.layout) > 1
+        grouped_match_plain(tp.group, tp.n, tp.m)
+        before = expand.KERNEL_PACKED.launches
+        got = spgemm_mod.tiled_expand_packed(tp, tplan.merge_pad)
+        assert expand.KERNEL_PACKED.launches == before + 1
+        want = spgemm_mod.tiled_expand_packed(cp, tplan.merge_pad)
+        assert got[2] == want[2]
+        assert_bit_equal([t.cpu() for t in got[:2]], want[:2])
+
+
+def test_tiled_spgemm_launches_k3_and_k4_once_per_part(cuda):
+    g = rmat(12, edge_factor=8, seed=5)
+    kw = dict(nparts=4, min_part_stream=1, budget=10.0)
+    tplan = plan_tiled_parts(g.to_csc(), g.to_csr(), device=cuda, **kw)
+    grouped = sum(tp.group is not None for _, _, tp in tplan.parts)
+    assert grouped and sum(len(tp.class_tables()) for _, _, tp in tplan.parts) > grouped
+    want = spgemm_scipy(g, g)
+    for packed, kernel in ((None, expand.KERNEL_PACKED), (False, expand.KERNEL_COORDS)):
+        before = kernel.launches
+        got = spgemm_padded_tiled_parts(tplan, packed=packed).to_csr()
+        assert kernel.launches == before + grouped
+        assert_csr_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_grouped_wrappers_refuse_a_misaligned_view(cuda):
+    g = random_group([(8, 16)], seed=1)
+    g = expand.TileGroup(g.desc, *(t.to(cuda) for t in (
+        g.tasks, g.a_rows, g.a_vals, g.b_cols_blk, g.b_vals_blk)))
+    keys = torch.empty(g.slots + 1, dtype=torch.int32, device=cuda)
+    vals = torch.empty(g.slots + 1, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        expand.expand_part_packed(g, n_cols=65536, out_keys=keys[1:], out_vals=vals[1:])
 
 
 def test_tiles_corner_2e32_on_card(cuda):

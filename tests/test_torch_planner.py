@@ -237,7 +237,7 @@ def test_plan_tiled_parts_equal(name):
 def test_converter_reproduces_jax_plans():
     for make, kw in (PARTS["forced4"], PARTS["rebased"]):
         jp = jsp.plan_tiled_parts(*(x for x in port_operands(*make())[0]), **kw)
-        tp = tiled_plan_from_arrays(jp)
+        tp = tiled_plan_from_arrays(jp, device="cpu")
         assert_tiled_plans_equal(jp, tp)
         assert all(
             t.device == torch.device("cpu")
@@ -246,4 +246,4 @@ def test_converter_reproduces_jax_plans():
     (ja, jb), _ = port_operands(*big_shape_pair())
     jp = jsp.plan_tiled(ja, jb)
     assert jp.light_plan is not None
-    assert_tiled_plans_equal(jp, tiled_plan_from_arrays(jp))
+    assert_tiled_plans_equal(jp, tiled_plan_from_arrays(jp, device="cpu"))
