@@ -54,7 +54,21 @@ checking every result exactly against scipy:
   ``graph triangles`` of rmat13 by both routes (315,423) and ``graph
   mcl`` of mcl_rmat14_4iter (its cluster count equal to scipy's MCL);
   the microbench suite; ``ref_spgemm_native`` on rmat14_ef8 against
-  scipy, timed beside it.
+  scipy, timed beside it;
+- the sharded mode (``shard/``, on ``torch.distributed``; the ranks are
+  spawned processes, each counting its own launches): a world of one
+  nccl rank runs ``spgemm_sharded_tiled`` on rmat(13, edge_factor=8,
+  seed=7) A² against scipy and on rmat(16, edge_factor=8, seed=5) A²
+  (m·n = 2³², rebased keys) against the single-device ``spgemm``, each
+  timed beside the single-device tiles pipeline, the rank's K3 and K1
+  inputs held bit for bit to plain and K2 to plain on the received
+  buffers; a world of 8 gloo ranks sharing the
+  card runs rmat14_ef8 A² by the 1-D, 2-D and tiled programs (the tiled
+  one also on (4, 2) with 2 exchange chunks), the JAX dryrun's operands
+  (nnz 4546, 5401, the rebased 8) and ``triangle_count_sharded`` of
+  rmat13 on (4, 2), each exact; ``spgemm --mesh 1``, ``spgemm --mesh
+  4,2 --dist-backend gloo`` and ``graph triangles --mesh 4,2
+  --dist-backend gloo`` through the command line, side by side.
 
 Each path's kernel launch counts are set to 0 just before its run and
 read just after; a kernel of the path that was not launched fails the
@@ -89,6 +103,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -911,6 +926,337 @@ def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want
     return launches
 
 
+SHARDED_REPS = 3  # warm runs timed per sharded program
+
+
+def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> dict:
+    """The sharded mode on the card (``shard/``, on ``torch.distributed``):
+
+    - a world of one rank on nccl, the JAX bench's (1,1) mesh at full
+      size: ``spgemm_sharded_tiled`` of rmat(13, edge_factor=8, seed=7)
+      A² against scipy, and of rmat(16, edge_factor=8, seed=5) A² (m·n =
+      2³², rebased keys, chunks automatic); plan ms, warm ms per op (CUDA
+      events, median of ``SHARDED_REPS``), the single-device tiles
+      pipeline beside it; the same program run here in a gloo world of
+      one on the card: rmat16's product held to the single-device
+      ``spgemm``, the rank's K3 and K1 inputs on rmat13 held bit for bit
+      to their plain versions and K2 to its plain version on every
+      received buffer it merges;
+    - one world of 8 ranks sharing the card over gloo (the exchange
+      staged through host memory), the counterpart of the JAX dryrun's
+      8 devices: rmat14_ef8 A² by ``spgemm_sharded`` on (8,),
+      ``spgemm_sharded_2d`` on (4, 2), ``spgemm_sharded_tiled`` on (8,)
+      and on (4, 2) with 2 exchange chunks, each gathered to rank 0 and
+      held to scipy; the dryrun's operands (nnz 4546 in 1-D and 4×2,
+      5401 in 1-D and 2-D chunked, the rebased 2³²-key nnz 8); and
+      ``triangle_count_sharded`` of triangles_rmat13 on (4, 2);
+    - the command line, three threads side by side: ``spgemm --mesh 1``
+      (nccl) and ``spgemm --mesh 4,2 --dist-backend gloo`` of rmat14_ef8
+      (nnz and flops exact) and ``graph triangles --mesh 4,2
+      --dist-backend gloo`` of triangles_rmat13.
+
+    Every program's kernels are counted in its ranks; returns the
+    phase's launches and the K1 / K2 / K3 errors against plain."""
+    import re
+    import tempfile
+
+    import torch.distributed as dist
+
+    from outerspace_tpu_torch import cli
+    from outerspace_tpu_torch.formats import COO, CSR, erdos_renyi, rmat
+    from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan
+    from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_flops, spgemm_scipy
+    from outerspace_tpu_torch.ops.spgemm import plan_tiled_parts, spgemm, spgemm_padded_tiled_parts
+    from outerspace_tpu_torch.perf.roofline import predict_sharded_tiled
+    from outerspace_tpu_torch.shard import tiled
+    from outerspace_tpu_torch.shard.mesh import Mesh, run_world
+    from outerspace_tpu_torch.shard.spgemm_sharded import shard_plan, shard_plan_2d
+    from outerspace_tpu_torch.shard.tiled import (build_sharded_tiled, shard_plan_tiled,
+                                                  spgemm_sharded_tiled)
+    from outerspace_tpu_torch.shard.world import run_jobs
+
+    t0 = time.perf_counter()
+    launches = {"K1": 0, "K2": 0, "K3": 0}
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+
+    def tally(label, results, path):
+        counts = {k: sum(r["launches"][k] for r in results) for k in launches}
+        for k in path:
+            if counts[k] == 0:
+                raise RuntimeError(f"{label}: kernel {k} was never launched")
+        for k, c in counts.items():
+            launches[k] += c
+        return counts
+
+    def path_of(plan):
+        tiles = (any(bk["tile_as"] for bk in plan.buckets) if plan.rebase else plan.tile_as)
+        return ("K3", "K1", "K2") if tiles else ("K1", "K2")
+
+    def csr_of(res):
+        shape, indptr, indices, data = res["csr"]
+        return CSR(shape, indptr, indices, data)
+
+    # ---- a world of one rank on nccl: sharded_rmat13_1x1, sharded_rmat16_1x1
+    ops = {}
+    for name, g in (("sharded_rmat13_1x1", rmat(13, edge_factor=8, seed=7)),
+                    ("sharded_rmat16_1x1", rmat(16, edge_factor=8, seed=5))):
+        a_csc, b_csr = g.to_csc(), g.to_csr()
+        ta = time.perf_counter()
+        plan = shard_plan_tiled(a_csc, b_csr, kx=1)
+        ops[name] = (g, a_csc, b_csr, plan, (time.perf_counter() - ta) * 1e3)
+    g13_, a13, b13, plan13, _ = ops["sharded_rmat13_1x1"]
+    g16, a16, b16, plan16, _ = ops["sharded_rmat16_1x1"]
+    if plan16.rebase is not True or plan13.rebase:
+        raise RuntimeError("rmat16 (m·n = 2^32) must plan rebased keys, rmat13 global ones")
+    jobs = [dict(program="tiled", mesh=(1,), plan=plan13, csr=True, entries=False,
+                 reps=SHARDED_REPS),
+            dict(program="tiled", mesh=(1,), plan=plan16, entries=False, reps=SHARDED_REPS)]
+    ta = time.perf_counter()
+    (res13, res16), = run_world(run_jobs, 1, backend="nccl", device="cuda", args=(jobs,),
+                                timeout=600)
+    world1_s = time.perf_counter() - ta
+    assert_csr_allclose(csr_of(res13), spgemm_scipy(g13_, g13_), rtol=VAL_RTOL, atol=VAL_ATOL)
+    print(f"world of one nccl rank: {world1_s:.3f} s from spawn to exit")
+
+    # the same program in a world of one gloo rank here, on the card: the
+    # rank's K3 and K1 inputs on rmat13 held to their plain versions bit
+    # for bit, K2 held to its plain version on every received buffer it
+    # merges (rmat13, and rmat16's two chunks), and rmat16's product held
+    # to the single-device spgemm (67 M entries stay on this process's
+    # side of the spawn)
+    merges = []
+    real_merge = tiled.merge_epilogue
+
+    def catch(key, vals, n_cols, sentinel_row, pad_count=0):
+        merges.append((key, vals, pad_count, n_cols, sentinel_row))
+        return real_merge(key, vals, n_cols, sentinel_row, pad_count)
+
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method=f"file://{d}/rendezvous", world_size=1, rank=0)
+        try:
+            mesh1 = Mesh((1,), ("x",), device=dev)
+            prog13 = build_sharded_tiled(plan13, mesh1, "x")
+            (rx,) = prog13.streams
+            if rx.group is None or rx.gather is None:
+                raise RuntimeError("sharded_rmat13_1x1: the rank has no K3 group or no K1 residue")
+            outs = [torch.empty(rx.group.slots, dtype=dt, device=dev)
+                    for dt in (torch.int32, torch.float32, torch.int32, torch.float32)]
+            expand.expand_part_packed(rx.group, n_cols=plan13.n, out_keys=outs[0], out_vals=outs[1])
+            expand.expand_part_packed_plain(rx.group, n_cols=plan13.n, out_keys=outs[2],
+                                            out_vals=outs[3])
+            g = rx.gather
+            args = (g["bases"], g["table"], g["a_pack"], g["b_pack"], g["group_bits"])
+            k1 = gexpand.expand_gather(*args, b_win=rx.b_win)
+            k1p = gexpand.expand_gather_plain(*args, b_win=rx.b_win)
+            tiled.merge_epilogue = catch
+            try:
+                out13 = prog13.run()
+                out16 = spgemm_sharded_tiled(plan16, mesh1, "x")
+            finally:
+                tiled.merge_epilogue = real_merge
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    for nm, (k, v, kp, vp) in (("K3", outs), ("K1", (*k1, *k1p))):
+        if not (torch.equal(k, kp) and torch.equal(v.view(torch.int32), vp.view(torch.int32))):
+            raise RuntimeError(f"{nm} on the sharded rank's rmat13 inputs is not bit-equal to plain")
+    k3_err = float((outs[1] - outs[3]).abs().max())
+    k1_err = float((k1[1] - k1p[1]).abs().max())
+    del outs, k1, k1p
+    if len(merges) != 1 + plan16.chunks:
+        raise RuntimeError(f"K2 merged {len(merges)} received buffers, want 1 + {plan16.chunks}")
+    k2_err, k2_slots = 0.0, []
+    for key, vals, pad, n_cols, sentinel in merges:
+        got = scan.merge_epilogue_scan(key, vals, pad, n_cols=n_cols, sentinel_row=sentinel)
+        want = scan.merge_epilogue_plain(key, vals, pad, n_cols=n_cols, sentinel_row=sentinel)
+        torch.cuda.synchronize()
+        for i, nm in ((0, "rows"), (1, "cols"), (3, "valid"), (4, "nnz")):
+            if not torch.equal(got[i], want[i]):
+                raise RuntimeError(f"K2 {nm} disagree with plain on a sharded received buffer")
+        if not torch.allclose(got[2], want[2], rtol=VAL_RTOL, atol=VAL_ATOL):
+            raise RuntimeError("K2 values disagree with plain on a sharded received buffer")
+        k2_err = max(k2_err, float((got[2] - want[2]).abs().max()))
+        k2_slots.append(key.numel())
+        del got, want
+    del merges
+    if int(out13.nnz) != res13["nnz"] or int(out16.nnz) != res16["nnz"]:
+        raise RuntimeError(f"the gloo rank's nnz ({int(out13.nnz)}, {int(out16.nnz)}) differ from "
+                           f"the nccl rank's ({res13['nnz']}, {res16['nnz']})")
+    want16 = spgemm(a16, b16, device=dev)
+    assert_csr_allclose(out16.to_csr(), want16, rtol=VAL_RTOL, atol=VAL_ATOL)
+    del out13, out16
+    print(f"K3 ({rx.group.slots} slots, classes {rx.group.layout}) and K1 ({rx.slots - rx.group.slots} "
+          f"slots) == plain bit for bit on the sharded rank's rmat13 inputs; K2 == plain (structure "
+          f"and nnz exact, values max |err| {k2_err:.3e}) on the received buffers it merges "
+          f"({k2_slots} slots); sharded_rmat16_1x1 == the single-device spgemm on the card "
+          f"(nnz {want16.nnz}), exact, in a gloo world of one")
+    del want16
+    for name, res, plan in (("sharded_rmat13_1x1", res13, plan13),
+                            ("sharded_rmat16_1x1", res16, plan16)):
+        counts = tally(name, [res], path_of(plan))
+        tp = plan_tiled_parts(ops[name][1], ops[name][2], device=dev)
+        single_ms = _median_ms(torch, lambda: spgemm_padded_tiled_parts(tp), reps=SHARDED_REPS)
+        del tp
+        check = "== scipy" if res is res13 else "== the single-device spgemm on the card"
+        print(f"{name}: {check} (nnz {res['nnz']}), exact; {res['mesh']}; plan "
+              f"{ops[name][4]:.3f} ms ({'rebased, ' if plan.rebase else ''}{plan.chunks} "
+              f"chunk(s), {plan.merge_parts} merge part(s), capacity {plan.capacity}); warm "
+              f"{res['median_s'] * 1e3:.4f} ms per op (CUDA events, median of "
+              f"{SHARDED_REPS}: {', '.join(f'{t * 1e3:.4f}' for t in res['seconds'])}); the "
+              f"single-device tiles pipeline on the same operand {single_ms:.4f} ms; roofline "
+              f"{predict_sharded_tiled(plan) * 1e3:.4f} ms; launches {counts}")
+    _phase("sharded world of 1 (nccl)", t0)
+
+    # ---- one world of 8 ranks sharing the card over gloo
+    t1 = time.perf_counter()
+    a14 = rmat(14, edge_factor=8, seed=1)
+    c14, r14 = a14.to_csc(), a14.to_csr()
+    er = erdos_renyi(128, 128, 0.05, seed=7)
+    r7 = rmat(7, edge_factor=8, seed=9).deduplicated()
+    m16 = 1 << 16
+    corner = COO((m16, m16), np.array([0, 0, 1, m16 - 1, m16 - 1, 7]),
+                 np.array([1, m16 - 1, 0, m16 - 1, 0, 7]), np.arange(1, 7, dtype=np.float32))
+    cases = [  # (label, job, operand, nnz the record states)
+        ("rmat14_ef8 spgemm_sharded (8,)", dict(program="sharded", mesh=(8,),
+                                                plan=shard_plan(c14, r14, 8)), a14, None),
+        ("rmat14_ef8 spgemm_sharded_2d (4, 2)",
+         dict(program="sharded_2d", mesh=(4, 2), plan=shard_plan_2d(c14, r14, 4, 2)), a14, None),
+        ("rmat14_ef8 spgemm_sharded_tiled (8,)",
+         dict(program="tiled", mesh=(8,), plan=shard_plan_tiled(c14, r14, kx=8), reps=3), a14, None),
+        ("rmat14_ef8 spgemm_sharded_tiled (4, 2) chunks 2",
+         dict(program="tiled", mesh=(4, 2), reps=3,
+              plan=shard_plan_tiled(c14, r14, kx=4, ny=2, exchange_chunks=2)), a14, None),
+        ("dryrun er128 spgemm_sharded (8,)",
+         dict(program="sharded", mesh=(8,), plan=shard_plan(er.to_csc(), er.to_csr(), 8)), er, 4546),
+        ("dryrun er128 spgemm_sharded_2d (4, 2)",
+         dict(program="sharded_2d", mesh=(4, 2), plan=shard_plan_2d(er.to_csc(), er.to_csr(), 4, 2)),
+         er, 4546),
+        ("dryrun rmat7 spgemm_sharded_tiled (8,)",
+         dict(program="tiled", mesh=(8,), plan=shard_plan_tiled(r7.to_csc(), r7.to_csr(), kx=8)),
+         r7, 5401),
+        ("dryrun rmat7 spgemm_sharded_tiled (4, 2) chunks 2",
+         dict(program="tiled", mesh=(4, 2),
+              plan=shard_plan_tiled(r7.to_csc(), r7.to_csr(), kx=4, ny=2, exchange_chunks=2)),
+         r7, 5401),
+        ("dryrun 2^32-key corner spgemm_sharded_tiled (8,), rebased",
+         dict(program="tiled", mesh=(8,), plan=shard_plan_tiled(corner.to_csc(), corner.to_csr(),
+                                                                kx=8)), corner, 8),
+    ]
+    jobs = [dict(job, csr=True, entries=False) for _, job, _, _ in cases]
+    jobs.append(dict(program="triangles", mesh=(4, 2), adj=rmat(13, edge_factor=8, seed=4)))
+    print(f"sharded world of 8 gloo ranks: plans {time.perf_counter() - t1:.3f} s")
+    ta = time.perf_counter()
+    world = run_world(run_jobs, 8, backend="gloo", device="cuda", args=(jobs,), timeout=900)
+    world8_s = time.perf_counter() - ta
+    for i, (label, job, g, nnz_want) in enumerate(cases):
+        res = [r[i] for r in world]
+        got = csr_of(res[0])
+        want = want1 if g is a14 else spgemm_scipy(g, g)
+        assert_csr_allclose(got, want, rtol=VAL_RTOL, atol=VAL_ATOL)
+        if nnz_want is not None and got.nnz != nnz_want:
+            raise RuntimeError(f"{label}: nnz {got.nnz}, the record says {nnz_want}")
+        path = ("K2",) if job["program"] != "tiled" else path_of(job["plan"])
+        counts = tally(label, res, path)
+        timing = ""
+        if "median_s" in res[0]:
+            slowest = max(r["median_s"] for r in res)
+            timing = f"; warm {slowest * 1e3:.4f} ms per op (slowest rank, median of 3)"
+        print(f"{label}: nnz {got.nnz} == scipy, exact{timing}; launches (8 ranks) {counts}")
+    tri = [r[-1] for r in world]
+    counts = tally("triangle_count_sharded (4, 2)", tri, ("K1", "K2"))
+    if [r["count"] for r in tri] != [tri_want] * 8:
+        raise RuntimeError(f"triangle_count_sharded rmat13 (4, 2): {[r['count'] for r in tri]}, "
+                           f"scipy {tri_want}")
+    print(f"triangle_count_sharded triangles_rmat13 (4, 2): {tri_want} == scipy on every rank "
+          f"({max(r['seconds'][0] for r in tri) * 1e3:.3f} ms, plan included); launches {counts}")
+    print(f"world of 8 gloo ranks on one card: {world[0][0]['mesh']}; {world8_s:.3f} s from "
+          "spawn to exit")
+    _phase("sharded world of 8 (gloo, one card)", t1)
+
+    # ---- the command line's --mesh: the three runs side by side, each in
+    # a thread of its own with its own world (a process that starts
+    # takes ~9 s to reach the card; the times they print share the card
+    # and the host's cores)
+    t1 = time.perf_counter()
+    runs = {
+        "spgemm --mesh 1": ["spgemm", f14, f14, "--no-transpose", "--mesh", "1"],
+        "spgemm --mesh 4,2 --dist-backend gloo": ["spgemm", f14, f14, "--no-transpose", "--mesh",
+                                                  "4,2", "--dist-backend", "gloo"],
+        "graph triangles --mesh 4,2 --dist-backend gloo": ["graph", "triangles", g13, "--mesh",
+                                                           "4,2", "--dist-backend", "gloo"],
+    }
+    out = _ThreadStdout(sys.stdout)
+    rcs = {}
+
+    def run_cli(label):
+        out.bufs[threading.get_ident()] = texts[label] = []
+        try:
+            rcs[label] = cli.main([*runs[label], "--device", "cuda"])
+        except BaseException as e:  # raised below, in the phase's thread
+            rcs[label] = e
+
+    texts = {}
+    threads = [threading.Thread(target=run_cli, args=(label,)) for label in runs]
+    with contextlib.redirect_stdout(out):
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    texts = {label: "".join(parts) for label, parts in texts.items()}
+    for label, rc in rcs.items():
+        if isinstance(rc, BaseException):
+            raise RuntimeError(f"cli {label} raised") from rc
+        if rc != 0:
+            raise RuntimeError(f"cli {label}: exit {rc}\n{texts[label]}")
+    counts = {}
+    for label, text in texts.items():
+        found = re.search(r"kernel launches \(all ranks[^)]*\): (.+)", text)
+        counts[label] = {k: int(v) for k, v in re.findall(r"(K\d) (\d+)", found.group(1))}
+        for k in launches:
+            launches[k] += counts[label].get(k, 0)
+    for label in list(runs)[:2]:
+        text = texts[label]
+        nnz = int(re.search(r"nnz: (\d+)", text).group(1))
+        flops = int(re.search(r"multiply flops: (\d+)", text).group(1))
+        if (nnz, flops) != (want1.nnz, spgemm_flops(c14, r14)):
+            raise RuntimeError(f"cli {label}: nnz {nnz}, flops {flops}")
+        if not all(counts[label].get(k) for k in ("K1", "K2")):
+            raise RuntimeError(f"cli {label}: launches {counts[label]}")
+        measured = re.search(r"measured \(sharded, warm, median of 3\): ([\d.]+) ms", text).group(1)
+        roof = re.search(r"analytical sharded \(roofline\):\s+([\d.]+) ms", text).group(1)
+        print(f"cli {label} rmat14_ef8: nnz {nnz}, flops {flops} exact; measured {measured} ms "
+              f"(warm, median of 3, slowest rank, beside the other CLI worlds), roofline {roof} "
+              f"ms; launches {counts[label]}")
+    label = list(runs)[2]
+    got = int(re.search(r"triangles \(mesh 4x2, gloo\): (\d+)", texts[label]).group(1))
+    if got != tri_want:
+        raise RuntimeError(f"cli {label}: {got}, scipy {tri_want}")
+    if not all(counts[label].get(k) for k in ("K1", "K2")):
+        raise RuntimeError(f"cli {label}: launches {counts[label]}")
+    print(f"cli {label} triangles_rmat13: {got} == scipy; launches {counts[label]}")
+    _phase("sharded cli", t1)
+    _phase("sharded", t0)
+    return {"launches": launches, "K1 err": k1_err, "K2 err": k2_err, "K3 err": k3_err}
+
+
+class _ThreadStdout(io.TextIOBase):
+    """A stdout that keeps the text of each registered thread apart
+    (``bufs[thread id]``, a list); other threads write through."""
+
+    def __init__(self, real):
+        self.real, self.bufs = real, {}
+
+    def write(self, text: str) -> int:
+        buf = self.bufs.get(threading.get_ident())
+        if buf is None:
+            return self.real.write(text)
+        buf.append(text)
+        return len(text)
+
+    def flush(self) -> None:
+        self.real.flush()
+
+
 def _steps(torch, train, model_type, sd, x, y, cfg, device, n=3):
     """``n`` train_steps from ``sd`` on (x, y) on ``device``: the losses
     and the final parameters, on the host."""
@@ -1665,6 +2011,13 @@ def main() -> int:
     for k, c in cli_launches.items():
         launches[k] = launches.get(k, 0) + c
 
+    # ---- the sharded mode: a world of 1 on nccl, 8 ranks sharing the card, --mesh
+    cli_dir = ROOT / "build" / "chip_smoke_cli"
+    sharded = _sharded_phase(torch, np, dev, want1, tri_want, str(cli_dir / "rmat14_ef8.mtx"),
+                             str(cli_dir / "triangles_rmat13.mtx"))
+    for k, c in sharded["launches"].items():
+        launches[k] += c
+
     pipelines = [(st, *_strategy_fns(st, a_csc, b_csr, dev)) for st in ("gather", "tiles")]
     pipelines = [(st, plan_fn(), run_fn) for st, plan_fn, run_fn in pipelines]
 
@@ -1778,6 +2131,8 @@ def main() -> int:
     for k in ("K1", "K2"):  # the MCL path's warm run launches them too
         launches[k] += mcl_launches[k]
     k1_err, k3_err = max(k1_err, mcl_launches["K1 err"]), max(k3_err, mcl_launches["K3 err"])
+    k1_err, k3_err = max(k1_err, sharded["K1 err"]), max(k3_err, sharded["K3 err"])
+    k2_err = max(k2_err, sharded["K2 err"])
     k4_err = max(k4_err, mcl_launches["K4 err"])
     record = {"kernels": [
         row("K1 gexpand (windowed-gather expand)", "cuda",

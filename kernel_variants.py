@@ -4,11 +4,13 @@
 the shapes ``chip_smoke.py`` drives: the five gather parts of rmat14_ef8
 A² (K1) and their sorted streams (K2), the class tables of its four
 tiled row parts (K3), and the eight layers of one MLP1w b1024 and one
-LeNet b256 forward with the committed weights (K5); and, with ROUTES,
-the earlier routes of ``spgemm``'s host stages beside the committed ones
-(``time_routes``). Run from the repository root:
+LeNet b256 forward with the committed weights (K5); with ROUTES, the
+earlier routes of ``spgemm``'s host stages beside the committed ones
+(``time_routes``); with WORLDS, what a launched world of the sharded
+mode costs before any work (``time_worlds``). Run from the repository
+root:
 
-    python3 kernel_variants.py [K1] [K2] [K3] [K5] [ROUTES] [--parent DIR]
+    python3 kernel_variants.py [K1] [K2] [K3] [K5] [ROUTES] [WORLDS] [--parent DIR]
 
 Each variant is the kernel's source with some of its constants (or some
 lines) replaced, built with the port's ``nvcc`` flags into
@@ -645,8 +647,42 @@ def time_k5(torch, dev):
               f"LeNet {sum(per[3:]):.4f}; per layer {', '.join(f'{p:.4f}' for p in per)}; == plain)")
 
 
+def world_stamp() -> dict:
+    """A rank's clock when it starts the function, after a first op on
+    its card, and after a barrier of its world."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.time()
+    torch.zeros(1, device="cuda").sum().item()
+    t1 = time.time()
+    dist.barrier()
+    return {"fn_start": t0, "cuda_ready": t1, "barrier": time.time()}
+
+
+def time_worlds():
+    """Empty worlds on the card (one nccl rank, one and eight gloo ranks):
+    the host clock from spawn to the function, to the barrier and to the
+    launcher's return."""
+    import time
+
+    from outerspace_tpu_torch.shard.mesh import run_world
+
+    for backend, n in (("nccl", 1), ("gloo", 1), ("gloo", 8)):
+        t = time.time()
+        res = run_world(world_stamp, n, backend=backend, device="cuda", timeout=300)
+        end = time.time()
+        starts = [r["fn_start"] - t for r in res]
+        print(f"empty world, {backend} x{n}: spawn to the function {min(starts):.3f}-"
+              f"{max(starts):.3f} s, first op on the card +"
+              f"{max(r['cuda_ready'] - r['fn_start'] for r in res):.3f} s, barrier "
+              f"{max(r['barrier'] for r in res) - t:.3f} s, spawn to exit {end - t:.3f} s")
+
+
 def main(argv) -> int:
-    """``argv``: what to time (K1, K2, K3, K5, ROUTES), all by default, and
+    """``argv``: what to time (K1, K2, K3, K5, ROUTES, WORLDS), all by default, and
     ``--parent DIR`` (see the module's docstring)."""
     import torch
 
@@ -660,7 +696,7 @@ def main(argv) -> int:
     if "--parent" in argv:
         i = argv.index("--parent")
         parent, argv = argv[i + 1], argv[:i] + argv[i + 2:]
-    which = argv or ["K1", "K2", "K3", "K5", "ROUTES"]
+    which = argv or ["K1", "K2", "K3", "K5", "ROUTES", "WORLDS"]
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {smoke._card_line()}")
@@ -676,6 +712,8 @@ def main(argv) -> int:
         time_k5(torch, dev)
     if "ROUTES" in which:
         time_routes(torch, dev, a)
+    if "WORLDS" in which:
+        time_worlds()
     print(smoke._card_line())
     return 0
 

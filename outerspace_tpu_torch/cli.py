@@ -1,7 +1,9 @@
 """The port's command line.
 
     python -m outerspace_tpu_torch.cli spgemm M1.mtx M2.mtx [--strategy ...] [--out C.mtx]
+        [--mesh KX[,NY] [--chunks N] [--merge-parts N] [--dist-backend {nccl,gloo}]]
     python -m outerspace_tpu_torch.cli graph {triangles,mcl} G.mtx [--iters N]
+        [--mesh KX[,NY] [--dist-backend {nccl,gloo}]]  (triangles only)
     python -m outerspace_tpu_torch.cli nn --mode {train,prune,finetune,eval,pf,export} ...
 
 ``spgemm`` reads two Matrix Market files and computes C = M1 · M2ᵀ
@@ -10,6 +12,12 @@ multiply-phase FLOP count, the card's roofline for the multiply and the
 merge (``perf.roofline``), the measured end-to-end time of a warm call
 and GFLOP/s; ``--out`` writes C. ``graph`` counts triangles or runs
 Markov clustering (MCL, with the roofline of its chain) on one graph.
+``spgemm --mesh KX[,NY]`` and ``graph triangles --mesh KX[,NY]`` run the
+sharded mode: the host plans, then a world of kx·ny ranks
+(``shard.mesh.run_world``) runs the tiled sharded program, its product
+gathered to rank 0 (``--dist-backend``: ``nccl``, one rank per card, the
+default with ``--device cuda``; ``gloo``, the default with ``--device
+cpu``, which also lets the ranks share one card).
 ``nn`` is the NN pipeline: train a model, magnitude-prune it, finetune
 the pruned model with its zeros kept, evaluate it on the test split,
 ``pf`` (train, prune, finetune with evaluations in between) and
@@ -18,9 +26,9 @@ SpGEMM operands); ``--data mnist`` without idx files
 (``nn.data.find_mnist_dir``) trains on ``synthetic_mnist`` instead.
 
 The arguments and defaults are the JAX package's ``cli.py``; ``--device``
-(default ``cuda``) picks where the work runs. The options of the
-sharded mode and the ``predict`` and ``bench`` subcommands are
-recognised and answered with :data:`NOT_PORTED` (exit 2).
+(default ``cuda``) picks where the work runs. ``graph mcl --mesh`` and
+``--loop`` and the ``predict`` and ``bench`` subcommands are recognised
+and answered with :data:`NOT_PORTED` (exit 2).
 """
 
 from __future__ import annotations
@@ -31,10 +39,12 @@ import importlib.util
 import sys
 import time
 
+SHARDED_REPS = 3  # timed runs of spgemm --mesh after its first run
+
 NOT_PORTED = (
-    "Not ported yet: --mesh, --chunks, --merge-parts and --loop (the sharded "
-    "mode, ROADMAP queue A item 4), predict (its event model, queue A item 5) "
-    "and bench (queue A item 3)."
+    "Not ported yet: graph mcl --mesh and --loop (the sharded MCL, ROADMAP "
+    "queue A item 4b), predict (its event model, queue A item 5) and bench "
+    "(queue A item 3)."
 )
 
 
@@ -50,6 +60,100 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _parse_mesh(args) -> tuple[int, int, str] | None:
+    """(kx, ny, backend) of a ``KX[,NY]`` mesh flag, checked against the
+    backend and the cards; prints why and returns None on any problem
+    (shared by ``spgemm --mesh`` and ``graph triangles --mesh``)."""
+    import torch
+
+    try:
+        dims = [int(x) for x in str(args.mesh).split(",")]
+    except ValueError:
+        dims = []
+    if not 1 <= len(dims) <= 2 or any(d < 1 for d in dims):
+        print(f"bad --mesh {args.mesh!r}: expected KX or KX,NY "
+              "(positive integers, e.g. --mesh 4,2)", file=sys.stderr)
+        return None
+    kx, ny = dims[0], (dims[1] if len(dims) > 1 else 1)
+    on_card = torch.device(args.device).type == "cuda"
+    backend = args.dist_backend or ("nccl" if on_card else "gloo")
+    if backend == "nccl":
+        cards = torch.cuda.device_count() if on_card else 0
+        if not on_card:
+            print("--dist-backend nccl runs on CUDA devices; --device cpu uses gloo",
+                  file=sys.stderr)
+            return None
+        if kx * ny > cards:
+            print(f"mesh {kx}x{ny} needs {kx * ny} cards for nccl (one rank per card), "
+                  f"{cards} found (--dist-backend gloo runs the ranks on the cards "
+                  "there are, sharing them)", file=sys.stderr)
+            return None
+    elif on_card and not torch.cuda.is_available():
+        print("--device cuda needs a CUDA device", file=sys.stderr)
+        return None
+    return kx, ny, backend
+
+
+def _build_for_ranks(device) -> None:
+    """Build the kernels and the planner core before the ranks start, so
+    that they do not each build them."""
+    import torch
+
+    from outerspace_tpu_torch.runtime import build
+
+    build.build_host("gplan")
+    if torch.device(device).type == "cuda":
+        build.build()
+
+
+def _summed_launches(results) -> str:
+    """The ranks' kernel launches, summed, as "K1 n, K2 n, ..."."""
+    names = results[0]["launches"]
+    return ", ".join(f"{k} {sum(r['launches'][k] for r in results)}" for k in names)
+
+
+def _cmd_spgemm_sharded(args, a_csc, b_csr, mesh) -> int:
+    """``spgemm --mesh KX[,NY]``: plan on the host, then a world of kx·ny
+    ranks runs the tiled sharded program (a first run, then
+    ``SHARDED_REPS`` timed ones) and gathers the product to rank 0."""
+    from outerspace_tpu_torch.formats import write_mtx
+    from outerspace_tpu_torch.formats.csr import CSR
+    from outerspace_tpu_torch.ops.reference import spgemm_flops
+    from outerspace_tpu_torch.perf.roofline import predict_sharded_tiled
+    from outerspace_tpu_torch.shard.mesh import run_world
+    from outerspace_tpu_torch.shard.tiled import shard_plan_tiled
+    from outerspace_tpu_torch.shard.world import run_jobs
+
+    kx, ny, backend = mesh
+    flops = spgemm_flops(a_csc, b_csr)
+    t0 = time.perf_counter()
+    plan = shard_plan_tiled(a_csc, b_csr, kx=kx, ny=ny,
+                            exchange_chunks=max(int(args.chunks or 1), 1),
+                            merge_parts=args.merge_parts)
+    t_plan = time.perf_counter() - t0
+    _build_for_ranks(args.device)
+    job = dict(program="tiled", mesh=(kx, ny) if ny > 1 else (kx,), plan=plan, csr=True,
+               entries=False, reps=SHARDED_REPS)
+    ranks = run_world(run_jobs, kx * ny, backend=backend, device=args.device, args=([job],))
+    res = [r[0] for r in ranks]
+    shape, indptr, indices, data = res[0]["csr"]
+    c = CSR(shape, indptr, indices, data)
+    elapsed = max(r["median_s"] for r in res)  # the slowest rank
+    print(f"C shape: {c.shape}, nnz: {c.nnz}")
+    print(f"multiply flops: {flops}")
+    print(f"mesh: {kx}x{ny} over {kx * ny} ranks ({res[0]['mesh']}); plan {t_plan:.2f}s; "
+          f"{plan.chunks} chunk(s), {plan.merge_parts} merge part(s)"
+          f"{', rebased keys' if plan.rebase else ''}")
+    print(f"analytical sharded (roofline):  {predict_sharded_tiled(plan) * 1e3:.3f} ms")
+    print(f"measured (sharded, warm, median of {SHARDED_REPS}): {elapsed * 1e3:.3f} ms "
+          f"({flops / max(elapsed, 1e-12) / 1e9:.3f} GFLOP/s)")
+    print(f"kernel launches (all ranks, first run): {_summed_launches(res)}")
+    if args.out:
+        write_mtx(args.out, c)
+        print(f"wrote {args.out}")
+    return 0
+
+
 def cmd_spgemm(args) -> int:
     from outerspace_tpu_torch.config import DEFAULT
     from outerspace_tpu_torch.formats import read_mtx, write_mtx
@@ -60,8 +164,11 @@ def cmd_spgemm(args) -> int:
     from outerspace_tpu_torch.sched.autotune import autotune
     from outerspace_tpu_torch.sched.gplanner import perf_part_count
 
-    if args.mesh or args.chunks is not None or args.merge_parts is not None:
-        return _not_ported()
+    mesh = None
+    if args.mesh:
+        mesh = _parse_mesh(args)
+        if mesh is None:
+            return 2
     cfg = DEFAULT.override(args.set or [])
     m1 = read_mtx(args.matrix1)
     m2 = read_mtx(args.matrix2)
@@ -71,6 +178,8 @@ def cmd_spgemm(args) -> int:
     if a_csc.shape[1] != b_csr.shape[0]:
         print(f"dimension mismatch: {a_csc.shape} @ {b_csr.shape}", file=sys.stderr)
         return 2
+    if mesh is not None:
+        return _cmd_spgemm_sharded(args, a_csc, b_csr, mesh)
     flops = spgemm_flops(a_csc, b_csr)
     plan = expansion_plan(a_csc, b_csr)
     p_pad = plan.padded_size()
@@ -108,9 +217,33 @@ def cmd_graph(args) -> int:
     from outerspace_tpu_torch.ops.graph import markov_cluster, mcl_clusters, triangle_count
     from outerspace_tpu_torch.perf.roofline import predict_mcl_time
 
-    if args.mesh or args.loop is not None:
+    if args.loop is not None or (args.mesh and args.kernel == "mcl"):
         return _not_ported()
+    mesh = None
+    if args.mesh:
+        # the sharded program cannot honour a backend or route override
+        if args.backend != "torch" or args.strategy != "auto":
+            print("error: --mesh runs the sharded device path; it cannot be combined "
+                  "with --backend/--strategy overrides", file=sys.stderr)
+            return 2
+        mesh = _parse_mesh(args)
+        if mesh is None:
+            return 2
     g = read_mtx(args.matrix)
+    if mesh is not None:
+        from outerspace_tpu_torch.shard.mesh import run_world
+        from outerspace_tpu_torch.shard.world import run_jobs
+
+        kx, ny, backend = mesh
+        _build_for_ranks(args.device)
+        job = dict(program="triangles", mesh=(kx, ny) if ny > 1 else (kx,), adj=g)
+        res = [r[0] for r in run_world(run_jobs, kx * ny, backend=backend, device=args.device,
+                                       args=([job],))]
+        n = res[0]["count"]
+        dt = max(r["seconds"][0] for r in res)
+        print(f"triangles (mesh {kx}x{ny}, {backend}): {n} ({dt * 1e3:.1f} ms)")
+        print(f"kernel launches (all ranks): {_summed_launches(res)}")
+        return 0
     if args.kernel == "triangles":
         t0 = time.perf_counter()
         n = triangle_count(g, strategy=args.strategy, backend=args.backend, device=args.device)
@@ -222,6 +355,16 @@ def cmd_nn(args) -> int:
     return 0
 
 
+def _mesh_arguments(p) -> None:
+    p.add_argument("--mesh", default=None, metavar="KX[,NY]",
+                   help="run the sharded program over a KX x NY mesh of ranks")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   dest="dist_backend",
+                   help="the ranks' torch.distributed backend (default: nccl with "
+                        "--device cuda, one rank per card; gloo with --device cpu; gloo "
+                        "with --device cuda shares the cards among the ranks)")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="outerspace_tpu_torch", epilog=NOT_PORTED)
     sub = parser.add_subparsers(dest="command", required=True)
@@ -236,10 +379,13 @@ def main(argv=None) -> int:
     p.add_argument("--set", action="append", metavar="KEY=VALUE",
                    help="override a Config field (e.g. --set waste_limit=3.0)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs there)")
-    p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--chunks", type=int, default=None, help=argparse.SUPPRESS)
+    _mesh_arguments(p)
+    p.add_argument("--chunks", type=int, default=1,
+                   help="sharded exchange chunks: each owner's rows exchanged and merged "
+                        "in this many parts")
     p.add_argument("--merge-parts", type=int, default=None, dest="merge_parts",
-                   help=argparse.SUPPRESS)
+                   help="key-range parts per sharded chunk merge (default: auto, ~2M "
+                        "pairs a part; 1 on a one-rank k axis, whose merge skips its sort)")
     p.set_defaults(fn=cmd_spgemm)
 
     p = sub.add_parser("nn", help="NN pipeline (train/prune/finetune/eval/pf/export)",
@@ -272,7 +418,7 @@ def main(argv=None) -> int:
                         "(auto = the selector's pick)")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs there)")
-    p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    _mesh_arguments(p)
     p.add_argument("--loop", default=None, help=argparse.SUPPRESS)
     p.set_defaults(fn=cmd_graph)
 

@@ -14,7 +14,9 @@ self-loops. Two routes on the card:
   K2), then one gather per A² entry into an edge bitmap and a masked sum.
 
 "auto" picks by a cost model whose two weights were measured on the card
-(:data:`DENSE_NS_PER_NPAD3`, :data:`SPARSE_NS_PER_PRODUCT`).
+(:data:`DENSE_NS_PER_NPAD3`, :data:`SPARSE_NS_PER_PRODUCT`). Over a mesh
+of ranks, :func:`triangle_count_sharded` runs the tiled sharded program
+(``shard/tiled.py``) and sums each rank's bitmap test.
 
 Markov clustering (:func:`markov_cluster`): square the column-stochastic
 flow, raise it to the inflation power, prune, normalise the columns,
@@ -217,6 +219,52 @@ def _tri_sparse_total(prep) -> torch.Tensor:
     tplan, bitmap, _, n_words = prep
     merged = spgemm_padded_tiled(tplan)
     return _tri_sum(merged.rows, merged.cols, merged.vals, merged.valid, bitmap, n_words)
+
+
+def _resolve_mesh_dims(mesh, kx, ny):
+    """(kx, ny) for a program on ``mesh``: kx defaults only on a 1-D mesh
+    (on a 2-D one a flattened kx would cover the first axis alone). The
+    program's build checks both against the mesh's axes."""
+    if kx is None:
+        if len(mesh.axis_names) != 1:
+            raise ValueError("multi-axis mesh needs explicit kx/ny (e.g. kx=4, ny=2)")
+        return mesh.size(mesh.axis_names[0]), 1
+    return kx, ny
+
+
+def triangle_count_sharded(
+    adj: COO | CSR,
+    mesh,
+    axes: tuple[str, str] | str = ("x", "y"),
+    kx: int | None = None,
+    ny: int = 1,
+) -> int:
+    """Triangles over a mesh of ranks (every rank calls it): A² by the
+    tiled sharded program (``shard/tiled.py``: K3, K1, sort, exchange,
+    K2), each rank's merged entries tested against its own row block of
+    A's edge bitmap (the exchange routed every entry of A² to its row
+    owner, so the test is local), the float64 partial sums all-reduced.
+    A²'s entries are integers, so the count is exact."""
+    import torch.distributed as dist
+
+    from outerspace_tpu_torch.shard.tiled import shard_plan_tiled, spgemm_sharded_tiled
+
+    coo = adj if isinstance(adj, COO) else adj.to_coo()
+    sym = _symmetrize_simple(coo)
+    kx, ny = _resolve_mesh_dims(mesh, kx, ny)
+    plan = shard_plan_tiled(sym.to_csc(), sym.to_csr(), kx=kx, ny=ny)
+    merged = spgemm_sharded_tiled(plan, mesh, axes=axes)
+    n_words = -(-plan.n // 32)
+    lo = mesh.index(axes if isinstance(axes, str) else axes[0]) * plan.rows_per_x
+    mine = (sym.row >= lo) & (sym.row < lo + plan.rows_per_x)
+    bitmap = _edge_bitmap(sym.row[mine] - lo, sym.col[mine], plan.rows_per_x, n_words)
+    bm = torch.from_numpy(bitmap.view(np.int32)).to(mesh.device)
+    rows = torch.where(merged.valid, merged.rows - lo, 0)
+    total = _tri_sum(rows, merged.cols, merged.vals, merged.valid, bm, n_words)
+    if mesh.staged:
+        total = total.cpu()
+    dist.all_reduce(total)
+    return int(round(float(total) / 6.0))
 
 
 # --------------------------------------------------------------------------

@@ -7,7 +7,8 @@ computed on the host before any device work.
 - bucketed padding sizes (``round_up_bucket``).
 
 A numpy copy of the JAX package's ``ops/symbolic.py`` trimmed to what the
-gather and tiled pipelines use; both packages build identical plans from it.
+gather, tiled and sharded pipelines use; both packages build identical plans
+from it.
 """
 
 from __future__ import annotations
@@ -113,3 +114,9 @@ def expansion_plan_subset(
         b_vals=b_csr.data,
         offsets=offsets,
     )
+
+
+def per_outer_index_flops(a_csc: CSC, b_csr: CSR) -> np.ndarray:
+    """Products of each outer index k: nnz(column k of A) · nnz(row k of
+    B), the weight the sharded plans balance k-ranges by."""
+    return a_csc.major_nnz().astype(np.int64) * b_csr.major_nnz().astype(np.int64)

@@ -16,7 +16,10 @@ from, each timed at a product-stream size ``p``, an element (table) size
   ``two_single_gathers_random`` two lanes gathered apart;
 - ``searchsorted_probes``: ``torch.searchsorted`` of ``m + 1`` probes into
   ``e`` sorted keys (int64 result); ``rank_trick_probes``: the chain's
-  ``ranks_in_sorted`` (the same binary search, int32 result).
+  ``ranks_in_sorted`` (the same binary search, int32 result);
+- ``slice_fill_buckets``: the sharded exchange's bucket fill
+  (``shard.spgemm_sharded._slice_fill_buckets``) of the ``p`` keys and
+  values into 8 buckets of ``p / 8`` slots (rounded up to 256, plus 256).
 
 Each rate is seconds per call: ``k`` calls back to back, timed by
 ``perf.timer.time_device`` (CUDA events on the card, the host clock on
@@ -66,6 +69,13 @@ def suite(p: int = 917_504, e: int = 196_608, m: int = 16_384,
     kE = put((np.sort(rng.integers(0, m * m, size=e)) + KEY_BIAS).astype(np.int32))
     probes = (torch.arange(m + 1, device=dev, dtype=torch.int64) * m + KEY_BIAS).to(torch.int32)
 
+    from outerspace_tpu_torch.shard.spgemm_sharded import _slice_fill_buckets
+
+    ndst = 8
+    cap = max(256, (p // ndst) // 256 * 256 + 256)
+    fstarts = put(np.linspace(0, max(p - cap, 0), ndst).astype(np.int32))
+    fends = torch.clamp(fstarts + cap - 7, max=p)
+
     def sort2():
         key, order = torch.sort(kP)
         return key, vP[order]
@@ -86,6 +96,8 @@ def suite(p: int = 917_504, e: int = 196_608, m: int = 16_384,
         "two_single_gathers_random": lambda: ti[jr] + tf_bits[jr],
         "searchsorted_probes": lambda: torch.searchsorted(kE, probes),
         "rank_trick_probes": lambda: ranks_in_sorted(kE, probes),
+        "slice_fill_buckets": lambda: _slice_fill_buckets(fstarts, fends, cap, ndst,
+                                                          (kP, 0), (vP, 0.0)),
     }
     return {name: time_device(lambda fn=fn: [fn() for _ in range(k)], reps=3, warmup=1) / k
             for name, fn in runs.items()}

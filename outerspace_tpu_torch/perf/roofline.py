@@ -16,8 +16,9 @@ pipeline, read from its tensors' dtypes:
 
 It is a closed-form cross-check printed beside measured times (the
 command line's ``spgemm`` and ``graph mcl``), the counterpart of the JAX
-package's ``perf/roofline.py``. The sharded predictors wait for the
-sharded mode's port.
+package's ``perf/roofline.py``. The sharded predictors
+(:func:`predict_sharded_tiled`, ``predict_spgemm_time(ndev > 1)``) add
+the exchange over NVLink.
 """
 
 from __future__ import annotations
@@ -31,11 +32,15 @@ class GPUConfig:
     """The card's constants, the counterpart of the JAX package's
     ``TPUConfig``. Defaults: one NVIDIA H100 SXM at its 700 W power
     limit, from NVIDIA's spec sheet, not measured: 3.35e12 B/s of HBM3,
-    and 67e12 float32 op/s outside the tensor cores. A card set to a lower
-    power limit runs slower than these."""
+    67e12 float32 op/s outside the tensor cores, and 450e9 B/s of NVLink
+    out of each card (the sharded mode's exchange). A card set to a
+    lower power limit runs slower than these."""
 
     hbm_bw_bytes: float = 3.35e12  # spec sheet, not measured
     fp32_ops: float = 67e12  # spec sheet, not measured
+    # NVLink 4 out of one card, one direction (900 GB/s both ways, all to
+    # all through the NVSwitch): spec sheet, not measured
+    nvlink_bw_bytes: float = 450e9
 
     def time(self, ops: float, bytes_moved: float) -> float:
         """Seconds: the larger of ``ops`` float32 operations at the peak
@@ -116,16 +121,59 @@ def predict_spgemm_time(
     ndev: int = 1,
     per_device_products: list[int] | None = None,
 ) -> float:
-    """Whole single-device pipeline: multiply plus merge. ``ndev > 1``
-    (and ``per_device_products``) belong to the sharded mode, which is not
-    ported yet."""
-    if ndev != 1 or per_device_products is not None:
-        raise NotImplementedError(
-            "multi-device prediction needs the sharded mode, which the port does not have yet"
+    """Whole pipeline: multiply plus merge. With ``ndev > 1`` the sharded
+    mode's plan-free estimate: the most loaded rank (``per_device_products``,
+    default an even split) expands its slice, sorts it by owner, sends
+    the (ndev − 1)/ndev of it that other ranks own over NVLink, and
+    merges as many products again. :func:`predict_sharded_tiled` charges a
+    real plan."""
+    if ndev == 1 and per_device_products is None:
+        return predict_multiply_time(padded_products, nnz_a, nnz_b, cfg) + predict_merge_time(
+            padded_products, cfg
         )
-    return predict_multiply_time(padded_products, nnz_a, nnz_b, cfg) + predict_merge_time(
-        padded_products, cfg
-    )
+    per_dev = per_device_products or [padded_products // ndev] * ndev
+    worst = max(per_dev)
+    t = predict_multiply_time(worst, nnz_a // ndev + 1, nnz_b, cfg)
+    t += predict_sort_time(worst, cfg)
+    t += worst * STREAM_BYTES * (ndev - 1) / ndev / cfg.nvlink_bw_bytes
+    return t + predict_merge_time(worst, cfg)
+
+
+def predict_sharded_tiled(plan, cfg: GPUConfig = GPUConfig()) -> float:
+    """The tiled sharded program (``shard/tiled.py``) on the most loaded
+    rank of a ``ShardedTiledPlan``, stage by stage:
+
+    1. the expand of the rank's streams (its own tasks and K1's groups,
+       ``tiled.rank_stream_lens``), and their sort: once over the
+       stream, or per rebased bucket at that bucket's stream length;
+    2. per chunk, the bucket fill (kx·capacity slots read and written)
+       and the all_to_all: the (kx − 1) buckets other ranks own, over
+       NVLink (nothing with one rank on the axis);
+    3. the merges: chunks × merge_parts streams of kx·mcap slots, each
+       part filled first when there are several; with kx = 1 the stream
+       arrives sorted and only K2 runs."""
+    from outerspace_tpu_torch.shard.tiled import rank_stream_lens
+
+    kx = plan.kx
+    t = 0.0
+    for i in range(kx):
+        for j in range(plan.ny):
+            lens = rank_stream_lens(plan, i, j)
+            tr = predict_multiply_time(sum(lens), 0, 0, cfg)
+            tr += sum(predict_sort_time(n, cfg) for n in lens if n)
+            t = max(t, tr)
+    slots = kx * plan.capacity
+    t += plan.chunks * _stream_time(cfg, slots, 2 * STREAM_BYTES)
+    t += plan.chunks * (kx - 1) * plan.capacity * STREAM_BYTES / cfg.nvlink_bw_bytes
+    per = max(kx * plan.mcap, 2)
+    n_streams = plan.chunks * plan.merge_parts
+    if plan.merge_parts > 1:
+        t += n_streams * _stream_time(cfg, per, 2 * STREAM_BYTES)
+    if kx == 1:
+        t += n_streams * cfg.time(per, per * EPILOGUE_BYTES + 4)
+    else:
+        t += n_streams * predict_merge_time(per, cfg)
+    return t
 
 
 # Per-slot bytes of the MCL chain's stages (ops/chain.py), each input

@@ -1,1 +1,16 @@
-"""Partitioning helpers (numpy). The sharded mode is not ported yet."""
+"""The sharded mode on ``torch.distributed``: the mesh of ranks and its
+launcher (``shard.mesh``), the flat-expand sharded SpGEMM in 1-D and 2-D
+(``shard.spgemm_sharded``) and the tiled one, global or rebased keys
+(``shard.tiled``), each an SPMD function every rank of the mesh runs,
+exchanging partial products with its row owners by all_to_all."""
+
+from outerspace_tpu_torch.shard.mesh import Mesh, make_mesh, run_world  # noqa: F401
+from outerspace_tpu_torch.shard.spgemm_sharded import (  # noqa: F401
+    shard_plan,
+    spgemm_sharded,
+)
+from outerspace_tpu_torch.shard.tiled import (  # noqa: F401
+    shard_plan_tiled,
+    sharded_tiled_to_csr,
+    spgemm_sharded_tiled,
+)

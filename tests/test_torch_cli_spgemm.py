@@ -3,8 +3,10 @@ package's ``cli.main`` on the same files, both on the CPU (JAX with its
 Pallas kernels in interpret mode): the shape, nnz and FLOP lines, the
 ``--out`` files (structure equal, values within rtol 1e-5), the triangle
 and cluster counts; ``--set`` reaching ``spgemm``; exit 2 on a dimension
-mismatch; exit 2 with the ``NOT_PORTED`` message on the sharded options,
-``predict`` and ``bench``."""
+mismatch; exit 2 with the ``NOT_PORTED`` message on ``graph mcl --mesh``
+/ ``--loop``, ``predict`` and ``bench``, and on a mesh that the cards
+cannot hold (``tests/test_torch_cli_sharded.py`` runs the sharded
+options)."""
 
 import importlib
 import os
@@ -125,19 +127,24 @@ def test_dimension_mismatch_exits_2(capsys, files):
     assert out == ""
 
 
-@pytest.mark.parametrize("argv", [
-    ["spgemm", "A", "B", "--mesh", "4,2"],
-    ["spgemm", "A", "B", "--chunks", "2"],
-    ["spgemm", "A", "B", "--merge-parts", "2"],
-    ["graph", "triangles", "G", "--mesh", "2"],
-    ["graph", "mcl", "G", "--loop", "device"],
-    ["predict", "A", "B", "--mesh", "4"],
-    ["bench"],
+NO_CARD = "needs 8 cards for nccl"  # the sharded options are ported: nccl wants a card a rank
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["spgemm", "A", "B", "--mesh", "4,2"], NO_CARD),
+    (["spgemm", "A", "B", "--mesh", "8", "--chunks", "2"], NO_CARD),
+    (["spgemm", "A", "B", "--mesh", "8", "--merge-parts", "2"], NO_CARD),
+    (["graph", "triangles", "G", "--mesh", "2,4"], NO_CARD),
+    (["graph", "mcl", "G", "--loop", "device"], cli.NOT_PORTED),
+    (["predict", "A", "B", "--mesh", "4"], cli.NOT_PORTED),
+    (["bench"], cli.NOT_PORTED),
 ], ids=["spgemm_mesh", "chunks", "merge_parts", "graph_mesh", "loop", "predict", "bench"])
-def test_unported_options_exit_2(capsys, argv):
+def test_unported_options_exit_2(capsys, argv, message):
+    # with no card here, the default --device cuda refuses a mesh before
+    # reading any file; the options still unported say so
     rc, out, err = run(cli.main, argv, capsys)
     assert rc == 2 and out == ""
-    assert cli.NOT_PORTED in err
+    assert message in err
     for name in ("--mesh", "predict", "bench", "queue A item 4", "queue A item 5", "queue A item 3"):
         assert name in cli.NOT_PORTED
 

@@ -1027,4 +1027,4 @@ def test_timers_on_card(cuda):
     s = time_device(lambda: torch.sort(x), reps=3)
     assert 0 < s < 0.1
     res = microbench.suite(p=8192, e=2048, m=256, k=2, device=str(cuda))
-    assert len(res) == 10 and all(np.isfinite(v) and v > 0 for v in res.values())
+    assert len(res) == 11 and all(np.isfinite(v) and v > 0 for v in res.values())

@@ -71,10 +71,12 @@ def test_radix_beats_bitonic_and_unknown_impl_raises():
 
 
 def test_multi_device_waits_for_the_sharded_mode():
-    with pytest.raises(NotImplementedError, match="sharded mode"):
-        predict_spgemm_time(1 << 20, 10, 10, ndev=2)
-    with pytest.raises(NotImplementedError, match="sharded mode"):
-        predict_spgemm_time(1 << 20, 10, 10, per_device_products=[1, 2])
+    # the sharded mode is ported: ndev > 1 predicts the most loaded rank
+    # (tests/test_torch_perf_sharded.py checks the sharded predictors)
+    even = predict_spgemm_time(1 << 20, 10, 10, ndev=2)
+    assert math.isfinite(even) and even > 0
+    skewed = predict_spgemm_time(1 << 20, 10, 10, ndev=2, per_device_products=[1 << 19, 3 << 18])
+    assert skewed > even
 
 
 def test_achieved_fraction_and_config():
@@ -167,7 +169,8 @@ def test_microbench_suite_small():
     assert sorted(res) == sorted([
         "sort2_p", "merge_epilogue_sorted_p", "sort1_u64_p", "scatter_bcast_lane",
         "pair_gather_random", "pair_gather_sorted", "i32_gather_random",
-        "two_single_gathers_random", "searchsorted_probes", "rank_trick_probes"])
+        "two_single_gathers_random", "searchsorted_probes", "rank_trick_probes",
+        "slice_fill_buckets"])
     assert all(math.isfinite(v) and v > 0 for v in res.values())
 
 
@@ -176,4 +179,4 @@ def test_microbench_main_prints_json():
     with contextlib.redirect_stdout(buf):
         assert microbench.main(["--small", "--k", "1", "--device", "cpu"]) == 0
     out = json.loads(buf.getvalue())
-    assert len(out) == 10 and all(np.isfinite(v) for v in out.values())
+    assert len(out) == 11 and all(np.isfinite(v) for v in out.values())
