@@ -68,7 +68,13 @@ checking every result exactly against scipy:
   (nnz 4546, 5401, the rebased 8) and ``triangle_count_sharded`` of
   rmat13 on (4, 2), each exact; ``spgemm --mesh 1``, ``spgemm --mesh
   4,2 --dist-backend gloo`` and ``graph triangles --mesh 4,2
-  --dist-backend gloo`` through the command line, side by side.
+  --dist-backend gloo`` through the command line, side by side; and in
+  the same worlds the sharded Markov clustering of mcl_rmat14_4iter by
+  the device-resident loop (one nccl rank, 8 gloo ranks on (8,) and
+  (4, 2)) and the host-planned loop (one rank, 8 ranks) against scipy's
+  MCL, ``SparseMLP.sharded`` (dp 1 and 8) bit-identical to one device,
+  the dp × tp MLP1w training step against one device, the multi-device
+  dry run's jobs with its line, and ``graph mcl --mesh`` by both loops.
 
 Each path's kernel launch counts are set to 0 just before its run and
 read just after; a kernel of the path that was not launched fails the
@@ -763,7 +769,8 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     # dropped device activity
     return {"K1": counts["K1"], "K2": counts["K2"], "run": lambda: graph.mcl_run(prep),
             "K1 err": k1_mcl_err, "K3 err": k3_mcl_err, "K4 err": k4_mcl_err,
-            "clusters": len(want_clusters)}
+            "clusters": len(want_clusters), "graph": g, "want": want,
+            "want_clusters": want_clusters, "warm_ms": med(warm_ms)}
 
 
 def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want: int) -> dict:
@@ -927,9 +934,15 @@ def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want
 
 
 SHARDED_REPS = 3  # warm runs timed per sharded program
+# the JAX package's multi-device record (MULTICHIP_r05.json), its dryrun's
+# numbers on 8 devices
+MULTICHIP_RECORD = ("sharded spgemm nnz=4546, 2-D (4x2) spgemm nnz=4546, pallas-tiled sharded "
+                    "nnz=5401 (1-D) / 5401 (2-D), rebased 2^32-key nnz=8 (exact), "
+                    "triangles_sharded=416 (exact), mcl_sharded nnz=287 clusters=7 (exact")
 
 
-def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> dict:
+def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str, g14: str,
+                   mcl: dict) -> dict:
     """The sharded mode on the card (``shard/``, on ``torch.distributed``):
 
     - a world of one rank on nccl, the JAX bench's (1,1) mesh at full
@@ -937,38 +950,64 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> 
       A² against scipy, and of rmat(16, edge_factor=8, seed=5) A² (m·n =
       2³², rebased keys, chunks automatic); plan ms, warm ms per op (CUDA
       events, median of ``SHARDED_REPS``), the single-device tiles
-      pipeline beside it; the same program run here in a gloo world of
-      one on the card: rmat16's product held to the single-device
-      ``spgemm``, the rank's K3 and K1 inputs on rmat13 held bit for bit
-      to their plain versions and K2 to its plain version on every
-      received buffer it merges;
+      pipeline beside it; mcl_rmat14_4iter by the device-resident loop
+      (its warm ms per iteration, its device synchronisations) and by
+      the host-planned loop, each against the MCL phase's scipy oracle;
+      MLP1w b1024 through ``SparseMLP.sharded`` (dp = 1), bit-identical
+      to the single-device forward;
+    - the same programs run here in a gloo world of one on the card:
+      rmat16's product held to the single-device ``spgemm``, the rank's
+      K3 and K1 inputs on rmat13 and on the MCL host loop's first
+      squaring held bit for bit to their plain versions, K2 to its plain
+      version on every received buffer the tiled program merges and on
+      the device MCL loop's first merge buffer, and K5 to its plain
+      version on one dp = 8 rank's shard of the serving batch;
     - one world of 8 ranks sharing the card over gloo (the exchange
       staged through host memory), the counterpart of the JAX dryrun's
       8 devices: rmat14_ef8 A² by ``spgemm_sharded`` on (8,),
       ``spgemm_sharded_2d`` on (4, 2), ``spgemm_sharded_tiled`` on (8,)
       and on (4, 2) with 2 exchange chunks, each gathered to rank 0 and
-      held to scipy; the dryrun's operands (nnz 4546 in 1-D and 4×2,
-      5401 in 1-D and 2-D chunked, the rebased 2³²-key nnz 8); and
-      ``triangle_count_sharded`` of triangles_rmat13 on (4, 2);
-    - the command line, three threads side by side: ``spgemm --mesh 1``
+      held to scipy; ``triangle_count_sharded`` of triangles_rmat13 on
+      (4, 2); every job of ``shard.dryrun.dryrun_jobs(8)`` (the JAX
+      dryrun's operands: nnz 4546 in 1-D and 4×2, 5401 in 1-D and 2-D
+      chunked, the rebased 2³²-key nnz 8, 416 triangles, MCL nnz 287 in
+      7 clusters, the dp 4 × tp 2 step, serving) and its line;
+      mcl_rmat14_4iter by the device loop on (8,) and (4, 2) and by the
+      host loop on (8,); MLP1w b1024 served on dp = 8, bit-identical;
+      three dp 4 × tp 2 steps of MLP1w at b1024 held to three
+      single-device ``train_step``s on the card (float32 within 1e-5 of
+      each tensor's norm, float64 within 1e-10 of its largest |value|),
+      and three dp 8 × tp 1 steps in float32 the same way;
+    - the command line, five threads side by side: ``spgemm --mesh 1``
       (nccl) and ``spgemm --mesh 4,2 --dist-backend gloo`` of rmat14_ef8
-      (nnz and flops exact) and ``graph triangles --mesh 4,2
-      --dist-backend gloo`` of triangles_rmat13.
+      (nnz and flops exact), ``graph triangles --mesh 4,2 --dist-backend
+      gloo`` of triangles_rmat13, ``graph mcl --mesh 1 --loop device``
+      (nccl) and ``graph mcl --mesh 4,2 --loop host --dist-backend gloo``
+      of mcl_rmat14_4iter (cluster counts exact).
 
     Every program's kernels are counted in its ranks; returns the
-    phase's launches and the K1 / K2 / K3 errors against plain."""
+    phase's launches and the K1 / K2 / K3 / K5 errors against plain."""
     import re
     import tempfile
 
     import torch.distributed as dist
 
     from outerspace_tpu_torch import cli
-    from outerspace_tpu_torch.formats import COO, CSR, erdos_renyi, rmat
-    from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan
+    from outerspace_tpu_torch.convert import load_params
+    from outerspace_tpu_torch.formats import CSR, rmat
+    from outerspace_tpu_torch.nn import train
+    from outerspace_tpu_torch.nn.data import synthetic_mnist
+    from outerspace_tpu_torch.nn.models import init_lecun_normal_, make_model
+    from outerspace_tpu_torch.nn.sparse_infer import TN, SparseMLP
+    from outerspace_tpu_torch.ops.graph import _mcl_setup, mcl_clusters
+    from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan, spmm
     from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_flops, spgemm_scipy
     from outerspace_tpu_torch.ops.spgemm import plan_tiled_parts, spgemm, spgemm_padded_tiled_parts
-    from outerspace_tpu_torch.perf.roofline import predict_sharded_tiled
+    from outerspace_tpu_torch.perf.roofline import (predict_mcl_sharded_iteration,
+                                                    predict_sharded_tiled)
+    from outerspace_tpu_torch.shard import mcl as smcl
     from outerspace_tpu_torch.shard import tiled
+    from outerspace_tpu_torch.shard.dryrun import dryrun_jobs
     from outerspace_tpu_torch.shard.mesh import Mesh, run_world
     from outerspace_tpu_torch.shard.spgemm_sharded import shard_plan, shard_plan_2d
     from outerspace_tpu_torch.shard.tiled import (build_sharded_tiled, shard_plan_tiled,
@@ -976,8 +1015,27 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> 
     from outerspace_tpu_torch.shard.world import run_jobs
 
     t0 = time.perf_counter()
-    launches = {"K1": 0, "K2": 0, "K3": 0}
+    launches = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
     torch.cuda.empty_cache()  # the ranks share the card with this process
+    # mcl_rmat14_4iter (the MCL phase's graph and scipy oracle), the
+    # device loop's plans on the three meshes (for the roofline), MLP1w
+    # and a b1024 batch, the batch's single-device logits
+    g_mcl, mcl_want = mcl["graph"], mcl["want"]
+    flow0 = _mcl_setup(g_mcl)
+    ta = time.perf_counter()
+    mcl_plans = {shape: smcl.plan_mcl_sharded_device(flow0, kx=shape[0], ny=shape[-1] if
+                                                     len(shape) > 1 else 1, iters=MCL_ITERS)
+                 for shape in ((1,), (8,), (4, 2))}
+    mcl_plan_ms = (time.perf_counter() - ta) * 1e3 / len(mcl_plans)
+    w1024 = load_params(WEIGHTS / "MLP1w" / "prune0p01_finetuned.pkl")
+    mnist = synthetic_mnist(MLP_BATCH, seed=1)
+    x_serve = np.concatenate([mnist[k][0] for k in ("train", "val", "test")])[:MLP_BATCH]
+    x_serve = np.ascontiguousarray(x_serve.reshape(MLP_BATCH, 784), dtype=np.float32)
+    y_serve = np.concatenate([mnist[k][1] for k in ("train", "val", "test")])[:MLP_BATCH]
+    serve_single = SparseMLP(w1024, device=dev)
+    single_logits = serve_single(x_serve).cpu().numpy()
+    x_dev = torch.from_numpy(x_serve).to(dev)
+    single_fwd_ms = _median_ms(torch, lambda: serve_single(x_dev))
 
     def tally(label, results, path):
         counts = {k: sum(r["launches"][k] for r in results) for k in launches}
@@ -996,6 +1054,60 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> 
         shape, indptr, indices, data = res["csr"]
         return CSR(shape, indptr, indices, data)
 
+    def mcl_check(label, results, loop):
+        """Every rank's final flow exact against scipy's MCL, cluster sets
+        equal, the device loop on its fast path, the path's kernels
+        launched; prints the run's line."""
+        for r in results:
+            got = csr_of(r)
+            _csr_equal(np, got, mcl_want, label)
+            if {tuple(sorted(c.tolist())) for c in mcl_clusters(got)} != mcl["want_clusters"]:
+                raise RuntimeError(f"{label}: cluster sets differ from scipy's")
+            if loop == "device" and r["report"]["fast_path"] is not True:
+                raise RuntimeError(f"{label}: the device loop left its fast path: {r['report']}")
+        path = ("K2",) if loop == "device" else ("K3", "K1", "K2")
+        counts = tally(label, results, path)
+        slowest = max(r["seconds"][0] for r in results) * 1e3
+        text = (f"{label}: final nnz {mcl_want.nnz} == scipy, structure exact, values within "
+                f"rtol {MCL_RTOL} atol {MCL_ATOL}, {len(mcl['want_clusters'])} cluster sets "
+                f"equal on every rank; the call {slowest:.3f} ms (host clock, slowest rank, "
+                f"plan included); launches {counts}")
+        if loop == "device":
+            rep = results[0]["report"]
+            text += (f"; report: fast path, {rep['iterations']} iterations, host reads "
+                     f"{rep['host_reads']}, budgets p_pad {rep['p_pad']} cap {rep['cap']} ecap "
+                     f"{rep['ecap']} nb {rep['nb']} na {rep['na']}")
+            if results[0]["syncs"] is not None:
+                text += f"; device synchronisations of the call {[r['syncs'] for r in results]}"
+            if "loop_seconds" in results[0]:
+                shape = tuple(int(v) for v in re.search(r"shape=\(([\d, ]+?),?\)",
+                                                         results[0]["mesh"]).group(1).split(","))
+                per = max(statistics.median(r["loop_seconds"]) for r in results) / MCL_ITERS
+                pred = predict_mcl_sharded_iteration(mcl_plans[shape])
+                text += (f"; warm loop {per * 1e3:.4f} ms per iteration (CUDA events, slowest "
+                         f"rank, median of {len(results[0]['loop_seconds'])}: "
+                         + ", ".join(f"{t * 1e3 / MCL_ITERS:.4f}"
+                                     for t in results[0]["loop_seconds"])
+                         + f" on rank 0), roofline {pred * 1e3:.4f} ms per iteration, the "
+                         f"single-device warm mcl_run {mcl['warm_ms']:.3f} ms a run "
+                         f"({mcl['warm_ms'] / MCL_ITERS:.4f} per iteration)")
+        print(text)
+
+    def serve_check(label, results):
+        for r in results:
+            if not np.array_equal(r["logits"], single_logits):
+                err = float(np.abs(r["logits"] - single_logits).max())
+                raise RuntimeError(f"{label}: logits not bit-identical to the single-device "
+                                   f"SparseMLP (max |err| {err:.3e})")
+        counts = tally(label, results, ("K5",))
+        if counts["K5"] != 3 * len(results) or sum(counts.values()) != counts["K5"]:
+            raise RuntimeError(f"{label}: launches {counts}, want K5 3 per rank only")
+        per = max(statistics.median(r["seconds"]) for r in results) * 1e3
+        print(f"{label}: MLP1w b{MLP_BATCH} logits bit-identical to the single-device SparseMLP "
+              f"on every rank; launches {counts}; {per:.4f} ms per request (CUDA events, slowest "
+              f"rank, median of {len(results[0]['seconds'])}, the all_gather included), the "
+              f"single-device forward {single_fwd_ms:.4f} ms")
+
     # ---- a world of one rank on nccl: sharded_rmat13_1x1, sharded_rmat16_1x1
     ops = {}
     for name, g in (("sharded_rmat13_1x1", rmat(13, edge_factor=8, seed=7)),
@@ -1010,13 +1122,24 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> 
         raise RuntimeError("rmat16 (m·n = 2^32) must plan rebased keys, rmat13 global ones")
     jobs = [dict(program="tiled", mesh=(1,), plan=plan13, csr=True, entries=False,
                  reps=SHARDED_REPS),
-            dict(program="tiled", mesh=(1,), plan=plan16, entries=False, reps=SHARDED_REPS)]
+            dict(program="tiled", mesh=(1,), plan=plan16, entries=False, reps=SHARDED_REPS),
+            dict(program="mcl", loop="device", mesh=(1,), adj=g_mcl, iters=MCL_ITERS,
+                 reps=SHARDED_REPS),
+            dict(program="mcl", loop="host", mesh=(1,), adj=g_mcl, iters=MCL_ITERS),
+            dict(program="serve", mesh=(1,), params=w1024, x=x_serve, reps=10)]
     ta = time.perf_counter()
-    (res13, res16), = run_world(run_jobs, 1, backend="nccl", device="cuda", args=(jobs,),
-                                timeout=600)
+    (res13, res16, mcl_dev1, mcl_host1, serve1), = run_world(
+        run_jobs, 1, backend="nccl", device="cuda", args=(jobs,), timeout=600)
     world1_s = time.perf_counter() - ta
     assert_csr_allclose(csr_of(res13), spgemm_scipy(g13_, g13_), rtol=VAL_RTOL, atol=VAL_ATOL)
-    print(f"world of one nccl rank: {world1_s:.3f} s from spawn to exit")
+    print(f"world of one nccl rank: {world1_s:.3f} s from spawn to exit; the device MCL "
+          f"loop's plans {mcl_plan_ms:.3f} ms each (host, made here for the roofline)")
+    mcl_check("mcl_rmat14_4iter device loop (1,) nccl", [mcl_dev1], "device")
+    if mcl_dev1["syncs"] > 2:
+        raise RuntimeError(f"the device MCL loop on one nccl rank synchronised "
+                           f"{mcl_dev1['syncs']} times, want <= 2 (its flags, its flow)")
+    mcl_check("mcl_rmat14_4iter host loop (1,) nccl", [mcl_host1], "host")
+    serve_check("SparseMLP.sharded dp=1 (nccl)", [serve1])
 
     # the same program in a world of one gloo rank here, on the card: the
     # rank's K3 and K1 inputs on rmat13 held to their plain versions bit
@@ -1031,23 +1154,56 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> 
         merges.append((key, vals, pad_count, n_cols, sentinel_row))
         return real_merge(key, vals, n_cols, sentinel_row, pad_count)
 
+    def rank_expands(prog, label):
+        """The rank's K3 group and K1 residue (one stream) expanded by the
+        kernels and by their plain versions, bit for bit. Returns
+        (K3 slots, K1 slots, K3 max |err|, K1 max |err|)."""
+        (rx,) = prog.streams
+        if rx.group is None or rx.gather is None:
+            raise RuntimeError(f"{label}: the rank has no K3 group or no K1 residue")
+        outs = [torch.empty(rx.group.slots, dtype=dt, device=dev)
+                for dt in (torch.int32, torch.float32, torch.int32, torch.float32)]
+        expand.expand_part_packed(rx.group, n_cols=prog.plan.n, out_keys=outs[0],
+                                  out_vals=outs[1])
+        expand.expand_part_packed_plain(rx.group, n_cols=prog.plan.n, out_keys=outs[2],
+                                        out_vals=outs[3])
+        g = rx.gather
+        args = (g["bases"], g["table"], g["a_pack"], g["b_pack"], g["group_bits"])
+        k1 = gexpand.expand_gather(*args, b_win=rx.b_win)
+        k1p = gexpand.expand_gather_plain(*args, b_win=rx.b_win)
+        torch.cuda.synchronize()
+        for nm, (k, v, kp, vp) in (("K3", outs), ("K1", (*k1, *k1p))):
+            if not (torch.equal(k, kp) and torch.equal(v.view(torch.int32), vp.view(torch.int32))):
+                raise RuntimeError(f"{nm} on {label} is not bit-equal to plain")
+        return (rx.group.slots, rx.slots - rx.group.slots, float((outs[1] - outs[3]).abs().max()),
+                float((k1[1] - k1p[1]).abs().max()))
+
+    mcl_merges = []
+    real_mcl_merge = smcl.merge_epilogue
+
+    def catch_mcl(key, vals, n_cols, sentinel_row, pad_count=0):
+        if not mcl_merges:  # the first iteration's received buffer
+            mcl_merges.append((key, vals, pad_count, n_cols, sentinel_row))
+        return real_mcl_merge(key, vals, n_cols, sentinel_row, pad_count)
+
     with tempfile.TemporaryDirectory() as d:
         dist.init_process_group("gloo", init_method=f"file://{d}/rendezvous", world_size=1, rank=0)
         try:
             mesh1 = Mesh((1,), ("x",), device=dev)
             prog13 = build_sharded_tiled(plan13, mesh1, "x")
-            (rx,) = prog13.streams
-            if rx.group is None or rx.gather is None:
-                raise RuntimeError("sharded_rmat13_1x1: the rank has no K3 group or no K1 residue")
-            outs = [torch.empty(rx.group.slots, dtype=dt, device=dev)
-                    for dt in (torch.int32, torch.float32, torch.int32, torch.float32)]
-            expand.expand_part_packed(rx.group, n_cols=plan13.n, out_keys=outs[0], out_vals=outs[1])
-            expand.expand_part_packed_plain(rx.group, n_cols=plan13.n, out_keys=outs[2],
-                                            out_vals=outs[3])
-            g = rx.gather
-            args = (g["bases"], g["table"], g["a_pack"], g["b_pack"], g["group_bits"])
-            k1 = gexpand.expand_gather(*args, b_win=rx.b_win)
-            k1p = gexpand.expand_gather_plain(*args, b_win=rx.b_win)
+            k3_slots, k1_slots, k3_err, k1_err = rank_expands(prog13, "the sharded rank's rmat13")
+            # the MCL host loop's first squaring on this rank (K3, K1), and
+            # the device loop's first merge buffer (K2, below)
+            prog_h = build_sharded_tiled(shard_plan_tiled(flow0.to_csc(), flow0, kx=1), mesh1, "x")
+            h3_slots, h1_slots, h3_err, h1_err = rank_expands(
+                prog_h, "the MCL host loop's first squaring")
+            k3_err, k1_err = max(k3_err, h3_err), max(k1_err, h1_err)
+            del prog_h
+            smcl.merge_epilogue = catch_mcl
+            try:
+                smcl.build_mcl_sharded_device(mcl_plans[(1,)], mesh1, "x").run()
+            finally:
+                smcl.merge_epilogue = real_mcl_merge
             tiled.merge_epilogue = catch
             try:
                 out13 = prog13.run()
@@ -1057,14 +1213,12 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> 
             torch.cuda.synchronize()
         finally:
             dist.destroy_process_group()
-    for nm, (k, v, kp, vp) in (("K3", outs), ("K1", (*k1, *k1p))):
-        if not (torch.equal(k, kp) and torch.equal(v.view(torch.int32), vp.view(torch.int32))):
-            raise RuntimeError(f"{nm} on the sharded rank's rmat13 inputs is not bit-equal to plain")
-    k3_err = float((outs[1] - outs[3]).abs().max())
-    k1_err = float((k1[1] - k1p[1]).abs().max())
-    del outs, k1, k1p
-    if len(merges) != 1 + plan16.chunks:
-        raise RuntimeError(f"K2 merged {len(merges)} received buffers, want 1 + {plan16.chunks}")
+    print(f"K3 ({k3_slots} / {h3_slots} slots) and K1 ({k1_slots} / {h1_slots} slots) == plain "
+          f"bit for bit on the sharded rank's rmat13 inputs / the MCL host loop's first "
+          f"squaring")
+    merges += mcl_merges
+    if len(merges) != 2 + plan16.chunks:
+        raise RuntimeError(f"K2 merged {len(merges)} received buffers, want 2 + {plan16.chunks}")
     k2_err, k2_slots = 0.0, []
     for key, vals, pad, n_cols, sentinel in merges:
         got = scan.merge_epilogue_scan(key, vals, pad, n_cols=n_cols, sentinel_row=sentinel)
@@ -1085,12 +1239,29 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> 
     want16 = spgemm(a16, b16, device=dev)
     assert_csr_allclose(out16.to_csr(), want16, rtol=VAL_RTOL, atol=VAL_ATOL)
     del out13, out16
-    print(f"K3 ({rx.group.slots} slots, classes {rx.group.layout}) and K1 ({rx.slots - rx.group.slots} "
-          f"slots) == plain bit for bit on the sharded rank's rmat13 inputs; K2 == plain (structure "
-          f"and nnz exact, values max |err| {k2_err:.3e}) on the received buffers it merges "
+    print(f"K2 == plain (structure and nnz exact, values max |err| {k2_err:.3e}) on the "
+          f"received buffers the tiled program merges and the device MCL loop's first "
           f"({k2_slots} slots); sharded_rmat16_1x1 == the single-device spgemm on the card "
           f"(nnz {want16.nnz}), exact, in a gloo world of one")
     del want16
+    # K5 on one dp = 8 rank's shard of the serving batch, layer by layer
+    h = x_dev[:MLP_BATCH // 8].T
+    k5_err = 0.0
+    for li, layer in enumerate(serve_single.layers):
+        n_cols = h.shape[1]
+        hp = h.new_zeros((layer.k_pad, -(-n_cols // TN) * TN))
+        hp[:h.shape[0], :n_cols] = h
+        y = spmm.spmm_blockell_device(layer.meta, layer.blocks, hp, tn=TN)
+        yp = spmm.spmm_blockell_plain(layer.meta, layer.blocks, hp)
+        err = float((y - yp).abs().max())
+        if not err <= K5_REL * float(yp.abs().max()):
+            raise RuntimeError(f"K5 on a dp=8 rank's shard, layer {li}: max |err| {err:.3e}")
+        k5_err = max(k5_err, err)
+        h = y[:layer.out_dim, :n_cols] + layer.bias[:, None]
+        if li < len(serve_single.layers) - 1:
+            h = torch.relu(h)
+    print(f"K5 == plain on a dp=8 rank's shard ({MLP_BATCH // 8} rows, 3 layers) within "
+          f"{K5_REL} of max |y| (max |err| {k5_err:.3e})")
     for name, res, plan in (("sharded_rmat13_1x1", res13, plan13),
                             ("sharded_rmat16_1x1", res16, plan16)):
         counts = tally(name, [res], path_of(plan))
@@ -1111,50 +1282,51 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> 
     t1 = time.perf_counter()
     a14 = rmat(14, edge_factor=8, seed=1)
     c14, r14 = a14.to_csc(), a14.to_csr()
-    er = erdos_renyi(128, 128, 0.05, seed=7)
-    r7 = rmat(7, edge_factor=8, seed=9).deduplicated()
-    m16 = 1 << 16
-    corner = COO((m16, m16), np.array([0, 0, 1, m16 - 1, m16 - 1, 7]),
-                 np.array([1, m16 - 1, 0, m16 - 1, 0, 7]), np.arange(1, 7, dtype=np.float32))
-    cases = [  # (label, job, operand, nnz the record states)
+    cases = [  # (label, job)
         ("rmat14_ef8 spgemm_sharded (8,)", dict(program="sharded", mesh=(8,),
-                                                plan=shard_plan(c14, r14, 8)), a14, None),
+                                                plan=shard_plan(c14, r14, 8))),
         ("rmat14_ef8 spgemm_sharded_2d (4, 2)",
-         dict(program="sharded_2d", mesh=(4, 2), plan=shard_plan_2d(c14, r14, 4, 2)), a14, None),
+         dict(program="sharded_2d", mesh=(4, 2), plan=shard_plan_2d(c14, r14, 4, 2))),
         ("rmat14_ef8 spgemm_sharded_tiled (8,)",
-         dict(program="tiled", mesh=(8,), plan=shard_plan_tiled(c14, r14, kx=8), reps=3), a14, None),
+         dict(program="tiled", mesh=(8,), plan=shard_plan_tiled(c14, r14, kx=8), reps=3)),
         ("rmat14_ef8 spgemm_sharded_tiled (4, 2) chunks 2",
          dict(program="tiled", mesh=(4, 2), reps=3,
-              plan=shard_plan_tiled(c14, r14, kx=4, ny=2, exchange_chunks=2)), a14, None),
-        ("dryrun er128 spgemm_sharded (8,)",
-         dict(program="sharded", mesh=(8,), plan=shard_plan(er.to_csc(), er.to_csr(), 8)), er, 4546),
-        ("dryrun er128 spgemm_sharded_2d (4, 2)",
-         dict(program="sharded_2d", mesh=(4, 2), plan=shard_plan_2d(er.to_csc(), er.to_csr(), 4, 2)),
-         er, 4546),
-        ("dryrun rmat7 spgemm_sharded_tiled (8,)",
-         dict(program="tiled", mesh=(8,), plan=shard_plan_tiled(r7.to_csc(), r7.to_csr(), kx=8)),
-         r7, 5401),
-        ("dryrun rmat7 spgemm_sharded_tiled (4, 2) chunks 2",
-         dict(program="tiled", mesh=(4, 2),
-              plan=shard_plan_tiled(r7.to_csc(), r7.to_csr(), kx=4, ny=2, exchange_chunks=2)),
-         r7, 5401),
-        ("dryrun 2^32-key corner spgemm_sharded_tiled (8,), rebased",
-         dict(program="tiled", mesh=(8,), plan=shard_plan_tiled(corner.to_csc(), corner.to_csr(),
-                                                                kx=8)), corner, 8),
+              plan=shard_plan_tiled(c14, r14, kx=4, ny=2, exchange_chunks=2))),
     ]
-    jobs = [dict(job, csr=True, entries=False) for _, job, _, _ in cases]
+    jobs = [dict(job, csr=True, entries=False) for _, job in cases]
     jobs.append(dict(program="triangles", mesh=(4, 2), adj=rmat(13, edge_factor=8, seed=4)))
+    # the dry run's jobs (the JAX dryrun's operands and seeds) in this world
+    d_jobs, d_finish = dryrun_jobs(8, dev)
+    d_at = len(jobs)
+    jobs += d_jobs
+    # mcl_rmat14_4iter by both loops, MLP1w served on dp = 8, and three
+    # dp 4 × tp 2 steps of MLP1w at b1024 in float32 and float64
+    mcl_at = len(jobs)
+    mcl_jobs = [("device loop (8,)", dict(program="mcl", loop="device", mesh=(8,), adj=g_mcl,
+                                          iters=MCL_ITERS, reps=SHARDED_REPS)),
+                ("device loop (4, 2)", dict(program="mcl", loop="device", mesh=(4, 2), adj=g_mcl,
+                                            iters=MCL_ITERS, reps=SHARDED_REPS)),
+                ("host loop (8,)", dict(program="mcl", loop="host", mesh=(8,), adj=g_mcl,
+                                        iters=MCL_ITERS))]
+    jobs += [job for _, job in mcl_jobs]
+    jobs.append(dict(program="serve", mesh=(8,), params=w1024, x=x_serve, reps=10))
+    tp_cfg = train.TrainConfig(model_type="MLP1w", l2reg=True)
+    tp_sd = init_lecun_normal_(make_model("MLP1w"), seed=0).state_dict()
+    # (4, 2) in both dtypes; (8, 1), data parallel alone, in float32: its
+    # gap to one device is the split batch's, with no tp in it
+    tp_runs = (((4, 2), torch.float32), ((4, 2), torch.float64), ((8, 1), torch.float32))
+    jobs += [dict(program="train", mesh=mesh, cfg=tp_cfg, steps=3, y=y_serve,
+                  state_dict={k: v.to(dt) for k, v in tp_sd.items()},
+                  x=x_serve.astype(np.float64 if dt == torch.float64 else np.float32))
+             for mesh, dt in tp_runs]
     print(f"sharded world of 8 gloo ranks: plans {time.perf_counter() - t1:.3f} s")
     ta = time.perf_counter()
     world = run_world(run_jobs, 8, backend="gloo", device="cuda", args=(jobs,), timeout=900)
     world8_s = time.perf_counter() - ta
-    for i, (label, job, g, nnz_want) in enumerate(cases):
-        res = [r[i] for r in world]
+    per_job = [[r[i] for r in world] for i in range(len(jobs))]
+    for (label, job), res in zip(cases, per_job):
         got = csr_of(res[0])
-        want = want1 if g is a14 else spgemm_scipy(g, g)
-        assert_csr_allclose(got, want, rtol=VAL_RTOL, atol=VAL_ATOL)
-        if nnz_want is not None and got.nnz != nnz_want:
-            raise RuntimeError(f"{label}: nnz {got.nnz}, the record says {nnz_want}")
+        assert_csr_allclose(got, want1, rtol=VAL_RTOL, atol=VAL_ATOL)
         path = ("K2",) if job["program"] != "tiled" else path_of(job["plan"])
         counts = tally(label, res, path)
         timing = ""
@@ -1162,18 +1334,55 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> 
             slowest = max(r["median_s"] for r in res)
             timing = f"; warm {slowest * 1e3:.4f} ms per op (slowest rank, median of 3)"
         print(f"{label}: nnz {got.nnz} == scipy, exact{timing}; launches (8 ranks) {counts}")
-    tri = [r[-1] for r in world]
+    tri = per_job[len(cases)]
     counts = tally("triangle_count_sharded (4, 2)", tri, ("K1", "K2"))
     if [r["count"] for r in tri] != [tri_want] * 8:
         raise RuntimeError(f"triangle_count_sharded rmat13 (4, 2): {[r['count'] for r in tri]}, "
                            f"scipy {tri_want}")
     print(f"triangle_count_sharded triangles_rmat13 (4, 2): {tri_want} == scipy on every rank "
           f"({max(r['seconds'][0] for r in tri) * 1e3:.3f} ms, plan included); launches {counts}")
-    print(f"world of 8 gloo ranks on one card: {world[0][0]['mesh']}; {world8_s:.3f} s from "
-          "spawn to exit")
+    d_res = per_job[d_at:mcl_at]
+    line = d_finish(d_res)
+    if MULTICHIP_RECORD not in line:
+        raise RuntimeError(f"dryrun_multichip(8): {line}; the record says {MULTICHIP_RECORD}")
+    for job, res in zip(d_jobs, d_res):
+        path = (path_of(job["plan"]) if job["program"] == "tiled" else
+                {"train": (), "serve": ("K5",)}.get(job["program"], ("K2",)))
+        tally(f"dryrun {job['program']} job", res, path)
+    print(f"{line}; launches (8 ranks) "
+          + json.dumps({k: sum(r["launches"][k] for res in d_res for r in res) for k in launches}))
+    for (label, _), res in zip(mcl_jobs, per_job[mcl_at:]):
+        mcl_check(f"mcl_rmat14_4iter {label} gloo", res, label.split()[0])
+    serve_check("SparseMLP.sharded dp=8 (gloo)", per_job[mcl_at + len(mcl_jobs)])
+    # float64: every element within 1e-10 of the largest |value| of its
+    # tensor. float32: each tensor within 1e-5 in norm (‖Δ‖ / ‖ref‖), its
+    # largest element gap printed: Adam steps a weight whose gradient is
+    # within rounding of zero by up to lr whatever that gradient's size,
+    # so a split batch parts single elements further
+    for (mesh, dt), res in zip(tp_runs, per_job[mcl_at + len(mcl_jobs) + 1:]):
+        x_tp = torch.from_numpy(x_serve).to(dt)
+        losses, ref = _steps(torch, train, "MLP1w", {k: v.to(dt) for k, v in tp_sd.items()},
+                             x_tp, torch.from_numpy(y_serve).long(), tp_cfg, dev)
+        got = {k: torch.from_numpy(v) for k, v in res[0]["state_dict"].items()}
+        max_rel = max(float((got[k] - ref[k]).abs().max() / ref[k].abs().max()) for k in ref)
+        norm_rel = max(float((got[k] - ref[k]).norm() / ref[k].norm()) for k in ref)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(res[0]["losses"], losses))
+        bar, rel = (1e-10, max_rel) if dt == torch.float64 else (1e-5, norm_rel)
+        label = f"dp {mesh[0]} x tp {mesh[1]}"
+        if not (rel <= bar and loss_rel <= bar):
+            raise RuntimeError(f"the {label} step ({dt}) vs the single-device train_step: "
+                               f"params {rel:.3e}, losses {loss_rel:.3e} apart, want {bar}")
+        tally(f"{label} step {dt}", res, ())
+        step_ms = max(statistics.median(r["seconds"]) for r in res) * 1e3
+        print(f"{label} MLP1w b{MLP_BATCH} l2reg, 3 steps in {str(dt)[6:]} against three "
+              f"single-device train_steps on the card: losses within {loss_rel:.3e} relative, "
+              f"parameters within {norm_rel:.3e} in norm and {max_rel:.3e} elementwise, "
+              f"relative (want {bar} {'elementwise' if dt == torch.float64 else 'in norm'}); "
+              f"{step_ms:.3f} ms a step (CUDA events, slowest rank, median of 3); losses "
+              f"{res[0]['losses']}")
     _phase("sharded world of 8 (gloo, one card)", t1)
 
-    # ---- the command line's --mesh: the three runs side by side, each in
+    # ---- the command line's --mesh: the five runs side by side, each in
     # a thread of its own with its own world (a process that starts
     # takes ~9 s to reach the card; the times they print share the card
     # and the host's cores)
@@ -1184,6 +1393,11 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> 
                                                   "4,2", "--dist-backend", "gloo"],
         "graph triangles --mesh 4,2 --dist-backend gloo": ["graph", "triangles", g13, "--mesh",
                                                            "4,2", "--dist-backend", "gloo"],
+        "graph mcl --mesh 1 --loop device": ["graph", "mcl", g14, "--iters", str(MCL_ITERS),
+                                             "--mesh", "1", "--loop", "device"],
+        "graph mcl --mesh 4,2 --loop host --dist-backend gloo": [
+            "graph", "mcl", g14, "--iters", str(MCL_ITERS), "--mesh", "4,2", "--loop", "host",
+            "--dist-backend", "gloo"],
     }
     out = _ThreadStdout(sys.stdout)
     rcs = {}
@@ -1234,9 +1448,22 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str) -> 
     if not all(counts[label].get(k) for k in ("K1", "K2")):
         raise RuntimeError(f"cli {label}: launches {counts[label]}")
     print(f"cli {label} triangles_rmat13: {got} == scipy; launches {counts[label]}")
+    for label in list(runs)[3:]:
+        text = texts[label]
+        found = re.search(r"mcl \(mesh (\dx\d), (\w+) loop\): (\d+) clusters \(([\d.]+) ms\)",
+                          text)
+        if found is None or int(found.group(3)) != len(mcl["want_clusters"]):
+            raise RuntimeError(f"cli {label}: {text[-2000:]}; scipy {len(mcl['want_clusters'])} "
+                               "clusters")
+        if not counts[label].get("K2") or ("device" in label and "fast path True" not in text):
+            raise RuntimeError(f"cli {label}: launches {counts[label]}\n{text}")
+        print(f"cli {label} mcl_rmat14_4iter: {found.group(3)} clusters == scipy's MCL "
+              f"({found.group(4)} ms, beside the other CLI worlds); "
+              f"{re.search(r'mcl sharded .*', text).group(0)}; launches {counts[label]}")
     _phase("sharded cli", t1)
     _phase("sharded", t0)
-    return {"launches": launches, "K1 err": k1_err, "K2 err": k2_err, "K3 err": k3_err}
+    return {"launches": launches, "K1 err": k1_err, "K2 err": k2_err, "K3 err": k3_err,
+            "K5 err": k5_err}
 
 
 class _ThreadStdout(io.TextIOBase):
@@ -2014,7 +2241,8 @@ def main() -> int:
     # ---- the sharded mode: a world of 1 on nccl, 8 ranks sharing the card, --mesh
     cli_dir = ROOT / "build" / "chip_smoke_cli"
     sharded = _sharded_phase(torch, np, dev, want1, tri_want, str(cli_dir / "rmat14_ef8.mtx"),
-                             str(cli_dir / "triangles_rmat13.mtx"))
+                             str(cli_dir / "triangles_rmat13.mtx"), str(cli_dir / "mcl_rmat14.mtx"),
+                             mcl_launches)
     for k, c in sharded["launches"].items():
         launches[k] += c
 
@@ -2132,7 +2360,7 @@ def main() -> int:
         launches[k] += mcl_launches[k]
     k1_err, k3_err = max(k1_err, mcl_launches["K1 err"]), max(k3_err, mcl_launches["K3 err"])
     k1_err, k3_err = max(k1_err, sharded["K1 err"]), max(k3_err, sharded["K3 err"])
-    k2_err = max(k2_err, sharded["K2 err"])
+    k2_err, k5_err = max(k2_err, sharded["K2 err"]), max(k5_err, sharded["K5 err"])
     k4_err = max(k4_err, mcl_launches["K4 err"])
     record = {"kernels": [
         row("K1 gexpand (windowed-gather expand)", "cuda",

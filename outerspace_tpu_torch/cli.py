@@ -3,7 +3,7 @@
     python -m outerspace_tpu_torch.cli spgemm M1.mtx M2.mtx [--strategy ...] [--out C.mtx]
         [--mesh KX[,NY] [--chunks N] [--merge-parts N] [--dist-backend {nccl,gloo}]]
     python -m outerspace_tpu_torch.cli graph {triangles,mcl} G.mtx [--iters N]
-        [--mesh KX[,NY] [--dist-backend {nccl,gloo}]]  (triangles only)
+        [--mesh KX[,NY] [--loop {host,device}] [--dist-backend {nccl,gloo}]]
     python -m outerspace_tpu_torch.cli nn --mode {train,prune,finetune,eval,pf,export} ...
 
 ``spgemm`` reads two Matrix Market files and computes C = M1 · M2ᵀ
@@ -17,7 +17,11 @@ sharded mode: the host plans, then a world of kx·ny ranks
 (``shard.mesh.run_world``) runs the tiled sharded program, its product
 gathered to rank 0 (``--dist-backend``: ``nccl``, one rank per card, the
 default with ``--device cuda``; ``gloo``, the default with ``--device
-cpu``, which also lets the ranks share one card).
+cpu``, which also lets the ranks share one card). ``graph mcl --mesh``
+runs the sharded Markov clustering in such a world: ``--loop host``
+(the default) plans every squaring on the host
+(``ops.graph.markov_cluster_sharded``), ``--loop device`` keeps the
+whole loop on the ranks' devices (``shard.mcl``).
 ``nn`` is the NN pipeline: train a model, magnitude-prune it, finetune
 the pruned model with its zeros kept, evaluate it on the test split,
 ``pf`` (train, prune, finetune with evaluations in between) and
@@ -26,9 +30,9 @@ SpGEMM operands); ``--data mnist`` without idx files
 (``nn.data.find_mnist_dir``) trains on ``synthetic_mnist`` instead.
 
 The arguments and defaults are the JAX package's ``cli.py``; ``--device``
-(default ``cuda``) picks where the work runs. ``graph mcl --mesh`` and
-``--loop`` and the ``predict`` and ``bench`` subcommands are recognised
-and answered with :data:`NOT_PORTED` (exit 2).
+(default ``cuda``) picks where the work runs. The ``predict`` and
+``bench`` subcommands are recognised and answered with :data:`NOT_PORTED`
+(exit 2).
 """
 
 from __future__ import annotations
@@ -42,9 +46,8 @@ import time
 SHARDED_REPS = 3  # timed runs of spgemm --mesh after its first run
 
 NOT_PORTED = (
-    "Not ported yet: graph mcl --mesh and --loop (the sharded MCL, ROADMAP "
-    "queue A item 4b), predict (its event model, queue A item 5) and bench "
-    "(queue A item 3)."
+    "Not ported yet: predict (its event model, ROADMAP queue A item 5) and "
+    "bench (queue A item 3)."
 )
 
 
@@ -63,7 +66,7 @@ def _sync(device) -> None:
 def _parse_mesh(args) -> tuple[int, int, str] | None:
     """(kx, ny, backend) of a ``KX[,NY]`` mesh flag, checked against the
     backend and the cards; prints why and returns None on any problem
-    (shared by ``spgemm --mesh`` and ``graph triangles --mesh``)."""
+    (shared by ``spgemm --mesh`` and ``graph --mesh``)."""
     import torch
 
     try:
@@ -217,8 +220,6 @@ def cmd_graph(args) -> int:
     from outerspace_tpu_torch.ops.graph import markov_cluster, mcl_clusters, triangle_count
     from outerspace_tpu_torch.perf.roofline import predict_mcl_time
 
-    if args.loop is not None or (args.mesh and args.kernel == "mcl"):
-        return _not_ported()
     mesh = None
     if args.mesh:
         # the sharded program cannot honour a backend or route override
@@ -236,12 +237,25 @@ def cmd_graph(args) -> int:
 
         kx, ny, backend = mesh
         _build_for_ranks(args.device)
-        job = dict(program="triangles", mesh=(kx, ny) if ny > 1 else (kx,), adj=g)
+        job = dict(program=args.kernel, mesh=(kx, ny) if ny > 1 else (kx,), adj=g)
+        if args.kernel == "mcl":
+            job.update(loop=args.loop, iters=args.iters)
         res = [r[0] for r in run_world(run_jobs, kx * ny, backend=backend, device=args.device,
                                        args=([job],))]
-        n = res[0]["count"]
         dt = max(r["seconds"][0] for r in res)
-        print(f"triangles (mesh {kx}x{ny}, {backend}): {n} ({dt * 1e3:.1f} ms)")
+        if args.kernel == "triangles":
+            print(f"triangles (mesh {kx}x{ny}, {backend}): {res[0]['count']} ({dt * 1e3:.1f} ms)")
+        else:
+            from outerspace_tpu_torch.formats.csr import CSR
+
+            clusters = mcl_clusters(CSR(*res[0]["csr"]))
+            print(f"mcl (mesh {kx}x{ny}, {args.loop} loop): {len(clusters)} clusters "
+                  f"({dt * 1e3:.1f} ms)")
+            report = res[0]["report"]
+            print(f"mcl sharded ({backend}): {report['iterations']} iteration(s), converged "
+                  f"{report['converged']}"
+                  + (f", fast path {report['fast_path']}, host reads {report['host_reads']}"
+                     if args.loop == "device" else ""))
         print(f"kernel launches (all ranks): {_summed_launches(res)}")
         return 0
     if args.kernel == "triangles":
@@ -419,7 +433,10 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs there)")
     _mesh_arguments(p)
-    p.add_argument("--loop", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--loop", default="host", choices=["host", "device"],
+                   help="mcl --mesh only: 'device' keeps the whole loop on the ranks' devices "
+                        "(shard/mcl.py, no host planning between iterations); 'host' plans "
+                        "each squaring on the host")
     p.set_defaults(fn=cmd_graph)
 
     for name in ("predict", "bench"):

@@ -7,7 +7,8 @@ kernels (the JAX package's ``nn/sparse_infer.py``).
 - ``spmm`` path: block-ELL weights × dense activations through K5
   (``ops/kernels/spmm.py``), the serving path: :class:`SparseMLP` and
   :class:`SparseLeNet` stage the weights on the card once and run each
-  layer as one K5 launch.
+  layer as one K5 launch; ``SparseMLP.sharded`` serves a batch split over
+  the ranks of a mesh.
 
 Both must match the dense forward within 1e-6 relative to the output's
 largest magnitude (the reference's eps, ``SimSpGEMM.cpp:283``), so all
@@ -200,6 +201,34 @@ class SparseMLP(nn.Module):
             if li < len(self.layers) - 1:
                 h = torch.relu(h)
         return h.T
+
+    def sharded(self, mesh, axis: str = "dp"):
+        """Data-parallel serving over ``axis`` of ``mesh`` (every rank of
+        the mesh holds this model, staged on ``mesh.device``, and calls
+        the returned function with the same whole batch): each rank runs
+        the forward, three K5 launches, on its contiguous shard of the
+        batch, and the logits are all-gathered along ``axis``, so every
+        rank returns the whole batch's. The batch must divide the axis
+        size."""
+        held = self.layers[0].blocks.device  # where the weights were staged
+        want = mesh.device
+        if want.type == "cuda" and want.index is None:
+            want = torch.device("cuda", torch.cuda.current_device())
+        if held != want:
+            raise ValueError(f"the model's weights are on {held}, the mesh's rank on {want}")
+        n_dev, d = mesh.size(axis), mesh.index(axis)
+
+        @torch.inference_mode()
+        def run(x) -> torch.Tensor:
+            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            batch = x.shape[0]
+            if batch % n_dev:
+                raise ValueError(f"batch {batch} does not divide the {n_dev} ranks of {axis!r}")
+            per = batch // n_dev
+            y = self(x[d * per:(d + 1) * per])
+            return mesh.all_gather(y, axis).reshape(batch, -1)
+
+        return run
 
 
 def _maxpool2(h: torch.Tensor) -> torch.Tensor:

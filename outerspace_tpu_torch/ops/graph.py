@@ -25,7 +25,10 @@ the first squaring over a host plan (K1 or K3, sort, K2), then the loop
 of ``ops.chain`` on buffers sized by a host sweep in scipy
 (:func:`mcl_size`) and kept in the sizing cache. One host read (the
 device ``ok`` flag) per run; if a budget did not hold, the exact
-stepwise chain runs and the budgets double.
+stepwise chain runs and the budgets double. Over a mesh of ranks,
+:func:`markov_cluster_sharded` plans every squaring on the host and runs
+it by the tiled sharded program; ``shard.mcl`` keeps the whole loop on
+the ranks' devices.
 """
 
 from __future__ import annotations
@@ -294,6 +297,54 @@ def _mcl_inflate_prune(expanded: CSR, inflation: float, prune_threshold: float) 
     v = np.power(np.maximum(c.val, 0.0), inflation)
     keep = v > prune_threshold
     return _col_normalize(COO(c.shape, c.row[keep], c.col[keep], v[keep]).to_csr())
+
+
+def markov_cluster_sharded(
+    adj: COO | CSR,
+    mesh,
+    axes: tuple[str, str] | str = ("x", "y"),
+    kx: int | None = None,
+    ny: int = 1,
+    expansion: int = 2,
+    inflation: float = 2.0,
+    iters: int = 10,
+    prune_threshold: float = 1e-4,
+    report: dict | None = None,
+) -> CSR:
+    """Markov clustering over a mesh of ranks (every rank calls it and
+    gets the final flow), each squaring planned on the host: per
+    iteration every rank plans the product of the current flow
+    (``shard_plan_tiled``), runs its part of the tiled sharded program
+    (K3, K1, sort, exchange, K2) and gathers the whole product from
+    every rank, then inflates, prunes and normalises on the host as
+    :func:`markov_cluster` does, with the same preamble and convergence
+    test. ``report`` receives the iterations run and whether the flow
+    converged."""
+    from outerspace_tpu_torch.shard.spgemm_sharded import allgather_to_csr
+    from outerspace_tpu_torch.shard.tiled import shard_plan_tiled, spgemm_sharded_tiled
+
+    coo = adj.to_coo() if not isinstance(adj, COO) else adj
+    kx, ny = _resolve_mesh_dims(mesh, kx, ny)
+    flow = _mcl_setup(coo)
+
+    def mult_sharded(a: CSR, b: CSR) -> CSR:
+        plan = shard_plan_tiled(a.to_csc(), b, kx=kx, ny=ny)
+        return allgather_to_csr((plan.m, plan.n), spgemm_sharded_tiled(plan, mesh, axes=axes))
+
+    info = dict(loop="host", iterations=0, converged=False)
+    for _ in range(iters):
+        expanded = flow
+        for _ in range(expansion - 1):
+            expanded = mult_sharded(expanded, flow)
+        new_flow = _mcl_inflate_prune(expanded, inflation, prune_threshold)
+        info["iterations"] += 1
+        if _converged(flow, new_flow):
+            flow, info["converged"] = new_flow, True
+            break
+        flow = new_flow
+    if report is not None:
+        report.update(info)
+    return flow
 
 
 def markov_cluster(

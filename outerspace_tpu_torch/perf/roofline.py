@@ -17,8 +17,8 @@ pipeline, read from its tensors' dtypes:
 It is a closed-form cross-check printed beside measured times (the
 command line's ``spgemm`` and ``graph mcl``), the counterpart of the JAX
 package's ``perf/roofline.py``. The sharded predictors
-(:func:`predict_sharded_tiled`, ``predict_spgemm_time(ndev > 1)``) add
-the exchange over NVLink.
+(:func:`predict_sharded_tiled`, ``predict_spgemm_time(ndev > 1)``,
+:func:`predict_mcl_sharded_iteration`) add the exchange over NVLink.
 """
 
 from __future__ import annotations
@@ -174,6 +174,59 @@ def predict_sharded_tiled(plan, cfg: GPUConfig = GPUConfig()) -> float:
     else:
         t += n_streams * predict_merge_time(per, cfg)
     return t
+
+
+# Per-slot bytes of the sharded MCL loop's stages (shard/mcl.py), each
+# input read once and each output written once:
+# the flat expand (ops.spgemm.expand_partial_products), per product slot:
+# three segment broadcasts (row, value, B offset: an int64 difference
+# scattered, cumsummed, narrowed to int32), the B position and the valid
+# flag, B's column and value gathered, the product, the key packed and
+# masked
+_FLAT_EXPAND_BYTES = 3 * (8 + (8 + 8) + (8 + 4)) + (4 + 8) + 1 + (8 + 4 + 4) * 2 + (4 + 4 + 4) \
+    + (4 + 4 + 4 + 1 + 4)
+# after the merge, per merged slot: the power and the prune (value and
+# valid in; value and keep out), the column sums scattered, the
+# normalisation (value, column, the gathered sum in; value out), the new
+# flow's key packed, and after its sort the column-major key packed
+_MCL_INFLATE_BYTES = (4 + 1 + 4 + 1) + (4 + 4 + 4) + (4 + 4 + 4 + 4) + (4 + 4 + 1 + 4) \
+    + (4 + 4 + 4 + 4)
+
+
+def predict_mcl_sharded_iteration(plan, cfg: GPUConfig = GPUConfig()) -> float:
+    """One iteration of the device-resident sharded MCL loop
+    (``shard/mcl.py``) on a ``ShardedMclPlan``'s rank, stage by stage:
+
+    1. the flat expand of ``p_pad`` slots and their sort;
+    2. the bucket fill (kx·cap slots) and the all_to_all of the kx − 1
+       buckets other ranks own, over NVLink;
+    3. the merge of the kx·cap received slots (``torch.sort`` and K2; K2
+       alone with one sender);
+    4. inflate, prune and normalise over the merged slots, the column
+       sums all-reduced along "x" (m float32 over NVLink);
+    5. the re-shard: the new flow's sort and the column-major sort of
+       the merged slots, the fill and all_to_all of kx·ecap slots, the
+       all_gather along "y" and the A side's sort (``na`` slots).
+
+    The counterpart of the JAX package's predictor, built from this
+    module's terms (the card's spec-sheet rates, not measured); the JAX
+    package's event-model twin waits for ``predict`` (ROADMAP A5)."""
+    kx, ny = plan.kx, plan.ny
+    merged = kx * plan.cap
+    t = _stream_time(cfg, plan.p_pad, _FLAT_EXPAND_BYTES) + predict_sort_time(plan.p_pad, cfg)
+    t += _stream_time(cfg, merged, 2 * STREAM_BYTES)
+    t += (kx - 1) * plan.cap * STREAM_BYTES / cfg.nvlink_bw_bytes
+    if kx == 1:
+        t += cfg.time(merged, merged * EPILOGUE_BYTES + 4)
+    else:
+        t += predict_merge_time(merged, cfg)
+    t += _stream_time(cfg, merged, _MCL_INFLATE_BYTES)
+    t += 2 * plan.m * 4 * (kx - 1) / kx / cfg.nvlink_bw_bytes
+    t += 2 * predict_sort_time(merged, cfg)
+    t += _stream_time(cfg, kx * plan.ecap, 2 * STREAM_BYTES)
+    t += (kx - 1) * plan.ecap * STREAM_BYTES / cfg.nvlink_bw_bytes
+    t += (ny - 1) * kx * plan.ecap * STREAM_BYTES / cfg.nvlink_bw_bytes
+    return t + predict_sort_time(plan.na, cfg)
 
 
 # Per-slot bytes of the MCL chain's stages (ops/chain.py), each input

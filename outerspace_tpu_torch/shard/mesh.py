@@ -6,7 +6,11 @@ The JAX package runs one ``shard_map`` program over a ``jax.sharding.Mesh``
 function (SPMD): a :class:`Mesh` gives the rank its coordinates on a
 (kx × ny) grid, the process group of each axis, and its
 ``torch.device``; ``lax.all_to_all`` over an axis becomes
-:meth:`Mesh.all_to_all`, one ``dist.all_to_all_single``. Rank r sits at
+:meth:`Mesh.all_to_all`, one ``dist.all_to_all_single``; ``lax.psum``
+and ``lax.all_gather`` become :meth:`Mesh.psum` (``dist.all_reduce``) and
+:meth:`Mesh.all_gather` (``dist.all_gather_into_tensor``), over one axis
+or the whole mesh, and :meth:`Mesh.reduce_sum` is the psum autograd
+differentiates (tensor parallelism). Rank r sits at
 (r // ny, r % ny), as ``np.array(devices).reshape(shape)`` orders the
 JAX mesh's devices.
 
@@ -15,7 +19,7 @@ The backend is the caller's to name:
 - ``nccl``: one rank per card, CUDA tensors throughout;
 - ``gloo``: CPU tensors, or ranks that share a card (NCCL refuses two
   ranks on one GPU). On a card the kernels still run there; only the
-  exchange is staged through host memory, and the mesh says so.
+  collectives are staged through host memory, and the mesh says so.
 
 :func:`run_world` spawns the ranks, meets them at a ``file://``
 rendezvous in a temporary directory, runs one function on each, and
@@ -25,6 +29,7 @@ raises in the caller any exception a rank raised.
 from __future__ import annotations
 
 import datetime
+import functools
 import os
 import pickle
 import tempfile
@@ -124,6 +129,68 @@ class Mesh:
         recv = torch.empty_like(src)
         dist.all_to_all_single(recv, src, group=group)
         return recv.to(send.device) if self.staged else recv
+
+    def _group(self, axes):
+        """The process group of ``axes``: one axis name (or a 1-tuple),
+        or every axis of the mesh (the default group)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in axes:
+            self._axis(a)
+        if len(set(axes)) == len(self.axis_names):
+            return None
+        if len(axes) != 1:
+            raise ValueError(f"axes {axes}: one axis or all of {self.axis_names}")
+        return self.groups[axes[0]]
+
+    def psum(self, t, axes):
+        """The sum of ``t`` over the ranks along ``axes`` (one axis, or
+        every axis of the mesh), on every one of them (the JAX package's
+        ``lax.psum``); ``t`` is not changed."""
+        import torch.distributed as dist
+
+        out = t.detach().clone() if not self.staged else t.detach().cpu()
+        dist.all_reduce(out, group=self._group(axes))
+        return out.to(t.device) if self.staged else out
+
+    def all_gather(self, t, axes):
+        """``t`` of every rank along ``axes`` stacked in their index order,
+        ``[size, *t.shape]``, on every one of them (``lax.all_gather``)."""
+        import torch
+        import torch.distributed as dist
+
+        group = self._group(axes)
+        size = dist.get_world_size(group)
+        src = t.contiguous().reshape(-1)
+        if self.staged:
+            src = src.cpu()
+        out = torch.empty(size * src.numel(), dtype=src.dtype, device=src.device)
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        gather(out, src, group=group)
+        out = out.view(size, *t.shape)
+        return out.to(t.device) if self.staged else out
+
+    def reduce_sum(self, t, axes):
+        """Differentiable :meth:`psum` for tensor parallelism (Megatron's
+        "g"): the sum over ``axes`` in the forward; in the backward the
+        gradient passes through unchanged, since every rank's loss counts
+        the sum once."""
+        return _reduce_sum_fn().apply(t, self, axes)
+
+
+@functools.cache
+def _reduce_sum_fn():
+    import torch
+
+    class ReduceSum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t, mesh, axes):
+            return mesh.psum(t, axes)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad, None, None
+
+    return ReduceSum
 
 
 def make_mesh(shape=None, axis_names=("x",), device=None) -> Mesh:

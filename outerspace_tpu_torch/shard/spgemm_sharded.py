@@ -64,7 +64,9 @@ def _slice_fill_buckets(starts, ends, capacity: int, ndst: int, *streams):
             outs.append(torch.full((ndst, capacity), dead, dtype=arr.dtype, device=dev))
             continue
         got = arr[idx.clamp(max=arr.numel() - 1)]
-        outs.append(torch.where(live, got, torch.tensor(dead, dtype=arr.dtype, device=dev)))
+        # the dead value as a Python scalar: a 0-d tensor made from it would
+        # be a copy from the host, a synchronisation on a card
+        outs.append(torch.where(live, got, dead))
     return tuple(outs)
 
 
@@ -266,6 +268,21 @@ def gather_to_csr(shape, out: MergedCOO) -> CSR | None:
         np.concatenate([p[1] for p in parts]),
         np.concatenate([p[2] for p in parts]),
     ).to_csr()
+
+
+def allgather_to_csr(shape, out: MergedCOO) -> CSR:
+    """Every rank's valid entries gathered to every rank of the default
+    group and assembled into a host CSR on each (a rank that plans the
+    next product needs all of this one)."""
+    import torch.distributed as dist
+
+    from outerspace_tpu_torch.formats.coo import COO
+
+    sel = out.valid
+    local = tuple(t[sel].cpu().numpy() for t in (out.rows, out.cols, out.vals))
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, local)
+    return COO(shape, *(np.concatenate([p[f] for p in parts]) for f in range(3))).to_csr()
 
 
 def sharded_result_to_csr(plan: ShardedPlan, out: MergedCOO) -> CSR | None:

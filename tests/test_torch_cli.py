@@ -105,7 +105,7 @@ def test_missing_model_and_help(capsys):
     out = subprocess.run([sys.executable, "-m", "outerspace_tpu_torch.cli", "--help"], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0
-    assert "Not ported yet" in out.stdout and "--mesh" in out.stdout
+    assert "Not ported yet" in out.stdout and "predict" in out.stdout
     # predict is not ported: exit 2 with the message; spgemm reads its files
     assert cli.main(["predict", "a.mtx", "b.mtx"]) == 2
     assert cli.NOT_PORTED in capsys.readouterr().err

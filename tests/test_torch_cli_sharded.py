@@ -2,9 +2,10 @@
 ranks): ``spgemm --mesh`` on meshes 2 and 2,2 (with ``--chunks`` and
 ``--merge-parts``) against the JAX package's ``cli.main --mesh 4,2`` on
 its 8 virtual devices and against scipy, ``--out`` read back, ``graph
-triangles --mesh`` against scipy's count; and the refusals (exit 2): a
-bad ``--mesh``, more ranks than cards for nccl, nccl on the CPU, ``graph
-mcl --mesh`` and a route override with ``--mesh``."""
+triangles --mesh`` against scipy's count, ``graph mcl --mesh`` by both
+loops against scipy's clusters; and the refusals (exit 2): a bad
+``--mesh``, more ranks than cards for nccl, nccl on the CPU (``graph
+mcl`` too) and a route override with ``--mesh``."""
 
 import os
 import re
@@ -79,6 +80,21 @@ def test_graph_triangles_mesh_on_cpu(files, capsys):
     assert re.search(rf"^triangles \(mesh 2x2, gloo\): {want} \(", out, re.M)
 
 
+@pytest.mark.parametrize("mesh,loop", [("2", "device"), ("2,2", "device"), ("2,2", "host")])
+def test_graph_mcl_mesh_on_cpu(files, capsys, mesh, loop):
+    from outerspace_tpu_torch.ops.graph import markov_cluster, mcl_clusters
+
+    rc, out, err = run(cli.main, ["graph", "mcl", files["tri"], "--iters", "4", "--mesh", mesh,
+                                  "--loop", loop, "--device", "cpu"], capsys)
+    assert rc == 0, err
+    want = len(mcl_clusters(markov_cluster(read_mtx(files["tri"]), iters=4, backend="scipy")))
+    kx, _, ny = mesh.partition(",")
+    assert re.search(rf"^mcl \(mesh {kx}x{ny or 1}, {loop} loop\): {want} clusters \(", out, re.M)
+    assert "mcl sharded (gloo): 4 iteration(s)" in out
+    if loop == "device":
+        assert "fast path True, host reads 2" in out
+
+
 @pytest.mark.parametrize("mesh", ["2x2", "0", "1,2,3", "a"])
 def test_bad_mesh_exits_2(files, capsys, mesh):
     rc, out, err = run(cli.main, ["spgemm", files["a"], files["b"], "--mesh", mesh,
@@ -94,7 +110,8 @@ def test_bad_mesh_exits_2(files, capsys, mesh):
     (["graph", "triangles", "{tri}", "--mesh", "4,2"], "needs 8 cards for nccl"),
     (["graph", "triangles", "{tri}", "--mesh", "2", "--strategy", "dense", "--device", "cpu"],
      "cannot be combined"),
-    (["graph", "mcl", "{tri}", "--mesh", "2", "--device", "cpu"], cli.NOT_PORTED),
+    (["graph", "mcl", "{tri}", "--mesh", "2", "--loop", "device", "--device", "cpu",
+      "--dist-backend", "nccl"], "--device cpu uses gloo"),
 ], ids=["too_many_ranks_for_nccl", "nccl_on_cpu", "gloo_without_card", "triangles_nccl",
         "route_override", "mcl_mesh"])
 def test_refusals_exit_2(files, capsys, argv, message):

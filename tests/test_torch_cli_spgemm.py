@@ -3,10 +3,11 @@ package's ``cli.main`` on the same files, both on the CPU (JAX with its
 Pallas kernels in interpret mode): the shape, nnz and FLOP lines, the
 ``--out`` files (structure equal, values within rtol 1e-5), the triangle
 and cluster counts; ``--set`` reaching ``spgemm``; exit 2 on a dimension
-mismatch; exit 2 with the ``NOT_PORTED`` message on ``graph mcl --mesh``
-/ ``--loop``, ``predict`` and ``bench``, and on a mesh that the cards
-cannot hold (``tests/test_torch_cli_sharded.py`` runs the sharded
-options)."""
+mismatch; exit 2 with the ``NOT_PORTED`` message on ``predict`` and
+``bench``, and on a mesh that the cards cannot hold; ``graph mcl --mesh
+--loop {host,device}`` on the CPU against the JAX package's on its 8
+virtual devices (``tests/test_torch_cli_sharded.py`` runs the other
+sharded options)."""
 
 import importlib
 import os
@@ -135,7 +136,7 @@ NO_CARD = "needs 8 cards for nccl"  # the sharded options are ported: nccl wants
     (["spgemm", "A", "B", "--mesh", "8", "--chunks", "2"], NO_CARD),
     (["spgemm", "A", "B", "--mesh", "8", "--merge-parts", "2"], NO_CARD),
     (["graph", "triangles", "G", "--mesh", "2,4"], NO_CARD),
-    (["graph", "mcl", "G", "--loop", "device"], cli.NOT_PORTED),
+    (["graph", "mcl", "G", "--mesh", "4,2", "--loop", "device"], NO_CARD),
     (["predict", "A", "B", "--mesh", "4"], cli.NOT_PORTED),
     (["bench"], cli.NOT_PORTED),
 ], ids=["spgemm_mesh", "chunks", "merge_parts", "graph_mesh", "loop", "predict", "bench"])
@@ -145,8 +146,27 @@ def test_unported_options_exit_2(capsys, argv, message):
     rc, out, err = run(cli.main, argv, capsys)
     assert rc == 2 and out == ""
     assert message in err
-    for name in ("--mesh", "predict", "bench", "queue A item 4", "queue A item 5", "queue A item 3"):
+    for name in ("predict", "bench", "queue A item 5", "queue A item 3"):
         assert name in cli.NOT_PORTED
+    for name in ("--mesh", "--loop", "queue A item 4"):  # ported
+        assert name not in cli.NOT_PORTED
+
+
+@pytest.mark.parametrize("loop", ["host", "device"])
+def test_graph_mcl_mesh_equal_jax(capsys, files, loop):
+    # the sharded MCL by either loop: the JAX package's on its 8 virtual
+    # devices (4x2), the port's in a gloo world of 4 CPU ranks (2x2)
+    jrc, jout, jerr = jax_run(["graph", "mcl", files["mcl"], "--iters", "3", "--mesh", "4,2",
+                               "--loop", loop], capsys)
+    rc, out, err = port_run(["graph", "mcl", files["mcl"], "--iters", "3", "--mesh", "2,2",
+                             "--loop", loop], capsys)
+    assert rc == jrc == 0, err + jerr
+    line = rf"^mcl \(mesh (\dx\d), {loop} loop\): (\d+) clusters \("
+    (jmesh, jn), (mesh, n) = (re.search(line, t, re.M).groups() for t in (jout, out))
+    assert (jmesh, mesh) == ("4x2", "2x2") and n == jn
+    rc, out, _ = port_run(["graph", "mcl", files["mcl"], "--iters", "3", "--backend", "scipy"],
+                          capsys)
+    assert rc == 0 and re.search(r"^mcl: (\d+) clusters", out, re.M).group(1) == n
 
 
 @pytest.mark.parametrize("strategy", ["auto", "dense", "sparse"])
