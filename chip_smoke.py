@@ -76,6 +76,16 @@ checking every result exactly against scipy:
   the dp × tp MLP1w training step against one device, the multi-device
   dry run's jobs with its line, and ``graph mcl --mesh`` by both loops.
 
+- the event model (``perf/perfsim.py`` over ``csrc/perfsim.cpp``, built
+  with g++): its machine printed beside the fields ``perf/simcal.py``
+  measures on this card, its four selftests passed under that machine;
+  ``spgemm``'s event-model multiply and merge over K3's (tiles) or K1's
+  (gather) device ms and sort + K2's; ``predict`` of rmat14_ef8 on
+  (1,), (4,), (2, 2) and (8,) (host only, no launch); the event model
+  of each one-rank nccl program and of the sharded MCL device loop's
+  (1,) iteration beside its measured time; ``spgemm --mesh``'s
+  event-model line over its measured time.
+
 Each path's kernel launch counts are set to 0 just before its run and
 read just after; a kernel of the path that was not launched fails the
 run. Then it holds each kernel against its plain PyTorch version on the
@@ -503,6 +513,26 @@ def _grouped_equal_plain(torch, expand, tplan, label: str) -> tuple[int, float, 
     return checked, e3, e4
 
 
+def _event_model_machine(dev) -> None:
+    """The event model's machine (``csrc/perfsim.cpp``'s built-in config)
+    beside the fields ``perf/simcal.py`` measures on this card, and its
+    four selftests, each of which must return 0 under that machine."""
+    from outerspace_tpu_torch.perf import perfsim, simcal
+
+    t0 = time.perf_counter()
+    machine = perfsim.get_config()
+    measured = simcal.measure(str(dev))
+    print("event model's machine (built in; measured on this card now): " + ", ".join(
+        f"{k} {v}" + (f" ({measured['fields'][k]})" if k in measured["fields"] else "")
+        for k, v in machine.items()))
+    print(f"event model's machine, raw measurements: {json.dumps(measured['raw'])}")
+    tests = perfsim.selftests()
+    if any(tests.values()):
+        raise RuntimeError(f"event model selftests under the card's machine: {tests}")
+    print(f"event model selftests under the card's machine: {tests} (0 = pass)")
+    _phase("event model machine", t0)
+
+
 def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     """Markov clustering on mcl_rmat14_4iter (the JAX bench's
     ``bench_mcl``: rmat(14, edge_factor=8, seed=7) with self loops and
@@ -773,7 +803,8 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
             "want_clusters": want_clusters, "warm_ms": med(warm_ms)}
 
 
-def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want: int) -> dict:
+def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want: int,
+               kernel_ms: dict) -> dict:
     """The command line on the card, through ``cli.main`` as a user runs
     it, its files under ``build/chip_smoke_cli/`` (with its own sizing
     cache): rmat14_ef8 written and read back (native and Python readers,
@@ -783,7 +814,11 @@ def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want
     ``spgemm --out`` of rmat10_ef8 · rmat10_ef8ᵀ read back against
     scipy; ``graph triangles`` by both routes and ``graph mcl`` against
     scipy's counts; the microbench suite; ``ref_spgemm_native`` against
-    scipy, timed beside it. Returns the phase's launches per kernel."""
+    scipy, timed beside it. ``spgemm`` prints the event model's multiply
+    and merge, each printed here over what it predicts (``kernel_ms``:
+    K3's device ms on the tiles path, K1's on the gather path, sort + K2
+    on the gather streams); ``predict`` models rmat14_ef8 on four meshes.
+    Returns the phase's launches per kernel."""
     import gzip
     import os
     import re
@@ -803,13 +838,14 @@ def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want
     os.environ["OUTERSPACE_SIZING_CACHE"] = str(out_dir / "sizing_cache.json")
     launches = dict.fromkeys(kernels, 0)
 
-    def run_cli(argv, path=()):
-        """One ``cli.main`` call, counted; returns its standard output."""
+    def run_cli(argv, path=(), on_card=True):
+        """One ``cli.main`` call, counted; returns its standard output.
+        ``on_card``: pass ``--device`` (``predict`` takes none)."""
         for k in kernels.values():
             k.launches = 0
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = cli.main([*argv, "--device", str(dev)])
+            rc = cli.main([*argv, "--device", str(dev)] if on_card else argv)
         torch.cuda.synchronize()
         counts = {n: k.launches for n, k in kernels.items()}
         if rc != 0:
@@ -869,6 +905,17 @@ def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want
         mult = float(field(text, r"analytical multiply \(roofline\): ([\d.]+) ms"))
         merge = float(field(text, r"analytical merge \(roofline\):\s+([\d.]+) ms"))
         ran = field(text, r"strategy: (\w+)")
+        ev_mult = float(field(text, r"event-model multiply:\s+([\d.]+) ms"))
+        ev_rate = field(text, r"event-model multiply:.*hit rate (\d+%)")
+        ev_merge = float(field(text, r"event-model merge:\s+([\d.]+) ms"))
+        kernel = {"tiles": "K3", "gather": "K1"}.get(ran)
+        if kernel:
+            sort_k2 = kernel_ms["torch.sort"] + kernel_ms["K2"]
+            print(f"cli spgemm rmat14_ef8 --strategy {st} (ran {ran}) event model: multiply "
+                  f"{ev_mult:.3f} ms (on-chip B-group hit rate {ev_rate}) / {kernel} "
+                  f"{kernel_ms[kernel]:.4f} device ms = {ev_mult / kernel_ms[kernel]:.3f}; merge "
+                  f"{ev_merge:.3f} ms / sort + K2 {sort_k2:.4f} device ms (gather streams) = "
+                  f"{ev_merge / sort_k2:.3f}")
         split = splits["rmat14_ef8", ran]
         print(f"cli spgemm rmat14_ef8 --strategy {st} (ran {ran}): nnz {nnz}, flops {flops} exact; "
               f"measured {ms:.3f} ms end to end; roofline multiply {mult:.3f} + merge {merge:.3f} "
@@ -877,6 +924,20 @@ def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want
               f"{split[0]:.3f}, device {split[1]:.3f}, fetch {split[2]:.3f}), so the CLI's own "
               f"cost {ms - sum(split):.3f} ms; launches (warm and measured call) {counts}")
     _phase("cli spgemm", t1)
+
+    # ---- predict: host only, any mesh
+    t1 = time.perf_counter()
+    for mesh in ("1", "4", "2,2", "8"):
+        text, counts = run_cli(["predict", f14, f14, "--no-transpose", "--mesh", mesh],
+                               on_card=False)
+        if any(counts.values()):
+            raise RuntimeError(f"cli predict --mesh {mesh} launched kernels: {counts}")
+        for pattern in (r"multiply flops: (\d+)", r"(mesh \d+x\d+ \(.+)",
+                        r"analytical sharded \(roofline\):\s+([\d.]+) ms",
+                        r"(event-model sharded:\s+[\d.]+ ms.*)"):
+            field(text, pattern)
+        print(f"cli predict rmat14_ef8 --mesh {mesh}: " + "; ".join(text.strip().splitlines()))
+    _phase("cli predict", t1)
 
     # ---- spgemm --out: rmat10_ef8 · rmat10_ef8ᵀ read back against scipy
     t1 = time.perf_counter()
@@ -1003,6 +1064,8 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str, g14
     from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan, spmm
     from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_flops, spgemm_scipy
     from outerspace_tpu_torch.ops.spgemm import plan_tiled_parts, spgemm, spgemm_padded_tiled_parts
+    from outerspace_tpu_torch.perf.perfsim import (simulate_mcl_sharded_iteration,
+                                                   simulate_sharded_tiled)
     from outerspace_tpu_torch.perf.roofline import (predict_mcl_sharded_iteration,
                                                     predict_sharded_tiled)
     from outerspace_tpu_torch.shard import mcl as smcl
@@ -1084,11 +1147,16 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str, g14
                                                          results[0]["mesh"]).group(1).split(","))
                 per = max(statistics.median(r["loop_seconds"]) for r in results) / MCL_ITERS
                 pred = predict_mcl_sharded_iteration(mcl_plans[shape])
+                event = ""
+                if shape == (1,):  # the event model, on the one-rank plan
+                    ev = simulate_mcl_sharded_iteration(mcl_plans[shape])["seconds"]
+                    event = (f", event model {ev * 1e3:.4f} ms per iteration "
+                             f"({ev / per:.3f} of the measured)")
                 text += (f"; warm loop {per * 1e3:.4f} ms per iteration (CUDA events, slowest "
                          f"rank, median of {len(results[0]['loop_seconds'])}: "
                          + ", ".join(f"{t * 1e3 / MCL_ITERS:.4f}"
                                      for t in results[0]["loop_seconds"])
-                         + f" on rank 0), roofline {pred * 1e3:.4f} ms per iteration, the "
+                         + f" on rank 0), roofline {pred * 1e3:.4f} ms per iteration{event}, the "
                          f"single-device warm mcl_run {mcl['warm_ms']:.3f} ms a run "
                          f"({mcl['warm_ms'] / MCL_ITERS:.4f} per iteration)")
         print(text)
@@ -1269,13 +1337,15 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str, g14
         single_ms = _median_ms(torch, lambda: spgemm_padded_tiled_parts(tp), reps=SHARDED_REPS)
         del tp
         check = "== scipy" if res is res13 else "== the single-device spgemm on the card"
+        event = simulate_sharded_tiled(plan)["seconds"]
         print(f"{name}: {check} (nnz {res['nnz']}), exact; {res['mesh']}; plan "
               f"{ops[name][4]:.3f} ms ({'rebased, ' if plan.rebase else ''}{plan.chunks} "
               f"chunk(s), {plan.merge_parts} merge part(s), capacity {plan.capacity}); warm "
               f"{res['median_s'] * 1e3:.4f} ms per op (CUDA events, median of "
               f"{SHARDED_REPS}: {', '.join(f'{t * 1e3:.4f}' for t in res['seconds'])}); the "
               f"single-device tiles pipeline on the same operand {single_ms:.4f} ms; roofline "
-              f"{predict_sharded_tiled(plan) * 1e3:.4f} ms; launches {counts}")
+              f"{predict_sharded_tiled(plan) * 1e3:.4f} ms; event model {event * 1e3:.4f} ms "
+              f"({event / res['median_s']:.3f} of the measured); launches {counts}")
     _phase("sharded world of 1 (nccl)", t0)
 
     # ---- one world of 8 ranks sharing the card over gloo
@@ -1438,9 +1508,14 @@ def _sharded_phase(torch, np, dev, want1, tri_want: int, f14: str, g13: str, g14
             raise RuntimeError(f"cli {label}: launches {counts[label]}")
         measured = re.search(r"measured \(sharded, warm, median of 3\): ([\d.]+) ms", text).group(1)
         roof = re.search(r"analytical sharded \(roofline\):\s+([\d.]+) ms", text).group(1)
+        event = re.search(r"event-model sharded:\s+([\d.]+) ms (.*)", text)
+        if event is None:
+            raise RuntimeError(f"cli {label}: no event-model sharded line\n{text}")
         print(f"cli {label} rmat14_ef8: nnz {nnz}, flops {flops} exact; measured {measured} ms "
               f"(warm, median of 3, slowest rank, beside the other CLI worlds), roofline {roof} "
-              f"ms; launches {counts[label]}")
+              f"ms, event model {event.group(1)} ms {event.group(2)} = "
+              f"{float(event.group(1)) / float(measured):.3f} of the measured; launches "
+              f"{counts[label]}")
     label = list(runs)[2]
     got = int(re.search(r"triangles \(mesh 4x2, gloo\): (\d+)", texts[label]).group(1))
     if got != tri_want:
@@ -1733,13 +1808,15 @@ def main() -> int:
     _phase("toolchain", t0)
 
     t0 = time.perf_counter()
-    for name, log in build.build().items():
+    for name, log in build.build((*build.KERNEL_SOURCES, "simcal")).items():
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  ptxas {name}: {ln.strip()}")
-    for name in build.HOST_SOURCES:  # the planner core, the .mtx reader, the CPU reference
+    # the planner core, the .mtx reader, the CPU reference, the event model
+    for name in build.HOST_SOURCES:
         print(f"  g++ {name}: {build.build_host(name).name}")
     _phase("build", t0)
+    _event_model_machine(dev)
 
     kernels = {"K1": gexpand.KERNEL, "K2": scan.KERNEL,
                "K3": expand.KERNEL_PACKED, "K4": expand.KERNEL_COORDS,
@@ -2234,7 +2311,8 @@ def main() -> int:
     _phase("timing: end-to-end splits", t1)
 
     # ---- the command line: spgemm, graph, the readers, the reference
-    cli_launches = _cli_phase(torch, np, dev, kernels, splits, tri_want, mcl_launches["clusters"])
+    cli_launches = _cli_phase(torch, np, dev, kernels, splits, tri_want, mcl_launches["clusters"],
+                              dev_ms)
     for k, c in cli_launches.items():
         launches[k] = launches.get(k, 0) + c
 

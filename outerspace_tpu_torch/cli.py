@@ -5,12 +5,14 @@
     python -m outerspace_tpu_torch.cli graph {triangles,mcl} G.mtx [--iters N]
         [--mesh KX[,NY] [--loop {host,device}] [--dist-backend {nccl,gloo}]]
     python -m outerspace_tpu_torch.cli nn --mode {train,prune,finetune,eval,pf,export} ...
+    python -m outerspace_tpu_torch.cli predict M1.mtx M2.mtx [--no-transpose] [--mesh KX[,NY]]
 
 ``spgemm`` reads two Matrix Market files and computes C = M1 · M2ᵀ
 (``--no-transpose``: M1 · M2), then prints C's shape and nnz, the
 multiply-phase FLOP count, the card's roofline for the multiply and the
-merge (``perf.roofline``), the measured end-to-end time of a warm call
-and GFLOP/s; ``--out`` writes C. ``graph`` counts triangles or runs
+merge (``perf.roofline``), the event model's multiply and merge
+(``perf.perfsim``), the measured end-to-end time of a warm call and
+GFLOP/s; ``--out`` writes C. ``graph`` counts triangles or runs
 Markov clustering (MCL, with the roofline of its chain) on one graph.
 ``spgemm --mesh KX[,NY]`` and ``graph triangles --mesh KX[,NY]`` run the
 sharded mode: the host plans, then a world of kx·ny ranks
@@ -22,6 +24,12 @@ runs the sharded Markov clustering in such a world: ``--loop host``
 (the default) plans every squaring on the host
 (``ops.graph.markov_cluster_sharded``), ``--loop device`` keeps the
 whole loop on the ranks' devices (``shard.mcl``).
+``predict`` plans C = M1 · M2ᵀ for a mesh (any size; no card, nothing
+launched) and prints the FLOP count, the sharded plan's sizes, the
+roofline (``perf.roofline.predict_sharded_tiled``) and the event model
+(``perf.perfsim.simulate_sharded_tiled``) of the sharded program; the
+sharded ``spgemm`` prints both beside its measured time. A failure in the
+event model fails the command.
 ``nn`` is the NN pipeline: train a model, magnitude-prune it, finetune
 the pruned model with its zeros kept, evaluate it on the test split,
 ``pf`` (train, prune, finetune with evaluations in between) and
@@ -30,9 +38,8 @@ SpGEMM operands); ``--data mnist`` without idx files
 (``nn.data.find_mnist_dir``) trains on ``synthetic_mnist`` instead.
 
 The arguments and defaults are the JAX package's ``cli.py``; ``--device``
-(default ``cuda``) picks where the work runs. The ``predict`` and
-``bench`` subcommands are recognised and answered with :data:`NOT_PORTED`
-(exit 2).
+(default ``cuda``) picks where the work runs. The ``bench`` subcommand is
+recognised and answered with :data:`NOT_PORTED` (exit 2).
 """
 
 from __future__ import annotations
@@ -46,8 +53,8 @@ import time
 SHARDED_REPS = 3  # timed runs of spgemm --mesh after its first run
 
 NOT_PORTED = (
-    "Not ported yet: predict (its event model, ROADMAP queue A item 5) and "
-    "bench (queue A item 3)."
+    "Not ported yet: bench. The port's benchmark is the job of a benchmark PR "
+    "(ROADMAP queue A item 3); the root bench.py belongs to the JAX package."
 )
 
 
@@ -63,21 +70,30 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _mesh_dims(mesh) -> tuple[int, int] | None:
+    """(kx, ny) of a ``KX[,NY]`` mesh flag; prints why and returns None if
+    it is not one."""
+    try:
+        dims = [int(x) for x in str(mesh).split(",")]
+    except ValueError:
+        dims = []
+    if not 1 <= len(dims) <= 2 or any(d < 1 for d in dims):
+        print(f"bad --mesh {mesh!r}: expected KX or KX,NY "
+              "(positive integers, e.g. --mesh 4,2)", file=sys.stderr)
+        return None
+    return dims[0], (dims[1] if len(dims) > 1 else 1)
+
+
 def _parse_mesh(args) -> tuple[int, int, str] | None:
     """(kx, ny, backend) of a ``KX[,NY]`` mesh flag, checked against the
     backend and the cards; prints why and returns None on any problem
     (shared by ``spgemm --mesh`` and ``graph --mesh``)."""
     import torch
 
-    try:
-        dims = [int(x) for x in str(args.mesh).split(",")]
-    except ValueError:
-        dims = []
-    if not 1 <= len(dims) <= 2 or any(d < 1 for d in dims):
-        print(f"bad --mesh {args.mesh!r}: expected KX or KX,NY "
-              "(positive integers, e.g. --mesh 4,2)", file=sys.stderr)
+    dims = _mesh_dims(args.mesh)
+    if dims is None:
         return None
-    kx, ny = dims[0], (dims[1] if len(dims) > 1 else 1)
+    kx, ny = dims
     on_card = torch.device(args.device).type == "cuda"
     backend = args.dist_backend or ("nccl" if on_card else "gloo")
     if backend == "nccl":
@@ -115,6 +131,17 @@ def _summed_launches(results) -> str:
     return ", ".join(f"{k} {sum(r['launches'][k] for r in results)}" for k in names)
 
 
+def _event_model_sharded(plan) -> str:
+    """The event model's line for a sharded plan."""
+    from outerspace_tpu_torch.perf.perfsim import simulate_sharded_tiled
+
+    ev = simulate_sharded_tiled(plan)
+    exch = ev["exchange_done_cycles"] - ev["expand_sort_cycles"]
+    return (f"event-model sharded:            {ev['seconds'] * 1e3:.3f} ms "
+            f"(front {ev['expand_sort_cycles']} cyc, exchange {max(exch, 0)} cyc, "
+            f"max link busy {ev['max_link_busy']} cyc)")
+
+
 def _cmd_spgemm_sharded(args, a_csc, b_csr, mesh) -> int:
     """``spgemm --mesh KX[,NY]``: plan on the host, then a world of kx·ny
     ranks runs the tiled sharded program (a first run, then
@@ -148,6 +175,7 @@ def _cmd_spgemm_sharded(args, a_csc, b_csr, mesh) -> int:
           f"{plan.chunks} chunk(s), {plan.merge_parts} merge part(s)"
           f"{', rebased keys' if plan.rebase else ''}")
     print(f"analytical sharded (roofline):  {predict_sharded_tiled(plan) * 1e3:.3f} ms")
+    print(_event_model_sharded(plan))
     print(f"measured (sharded, warm, median of {SHARDED_REPS}): {elapsed * 1e3:.3f} ms "
           f"({flops / max(elapsed, 1e-12) / 1e9:.3f} GFLOP/s)")
     print(f"kernel launches (all ranks, first run): {_summed_launches(res)}")
@@ -163,9 +191,11 @@ def cmd_spgemm(args) -> int:
     from outerspace_tpu_torch.ops.reference import spgemm_flops
     from outerspace_tpu_torch.ops.spgemm import default_part_count, spgemm
     from outerspace_tpu_torch.ops.symbolic import expansion_plan
+    from outerspace_tpu_torch.perf import perfsim
     from outerspace_tpu_torch.perf.roofline import predict_merge_time, predict_multiply_time
     from outerspace_tpu_torch.sched.autotune import autotune
     from outerspace_tpu_torch.sched.gplanner import perf_part_count
+    from outerspace_tpu_torch.sched.planner import plan_outer_classes
 
     mesh = None
     if args.mesh:
@@ -207,6 +237,27 @@ def cmd_spgemm(args) -> int:
     print(f"strategy: {strategy} (waste limit {cfg.waste_limit}, merge parts {merge_parts})")
     print(f"analytical multiply (roofline): {roof_mult * 1e3:.3f} ms")
     print(f"analytical merge (roofline):    {roof_merge * 1e3:.3f} ms")
+    # the event model over the class tables: each class's task stream (B
+    # major) through an on-chip cache of the B blocks K3 holds at once
+    # (perfsim's defaults, read from csrc/expand.cu: one 1 KiB B block a
+    # line, kUnroll = 2 a block, 4 blocks an SM, 132 SMs)
+    classes = plan_outer_classes(a_csc, b_csr, waste_limit=cfg.waste_limit).classes
+    mult_s = hits = misses = 0
+    for cl in classes:
+        if cl.ntasks:
+            pred = perfsim.simulate_expand_cached(cl)
+            mult_s += pred["seconds"]
+            hits += pred["hits"]
+            misses += pred["misses"]
+    print(f"event-model multiply:           {mult_s * 1e3:.3f} ms "
+          f"(on-chip B-group hit rate {hits / max(hits + misses, 1):.0%})")
+    # the merge: the picked pipeline's parts, each an even share of the
+    # padded stream, written back as the measured nnz's share
+    base, rem = divmod(p_pad, merge_parts)
+    part_lens = [base + (1 if i < rem else 0) for i in range(merge_parts)]
+    mpred = perfsim.simulate_merge_parts(part_lens, [8 * (c.nnz // merge_parts + 1)] * merge_parts)
+    print(f"event-model merge:              {mpred['seconds'] * 1e3:.3f} ms "
+          f"(parts={merge_parts}, sort util {mpred['sort_util']:.0%})")
     print(f"measured (end-to-end): {elapsed * 1e3:.3f} ms")
     print(f"GFlops: {flops / elapsed / 1e9:.4f}")
     if args.out:
@@ -282,6 +333,40 @@ def cmd_graph(args) -> int:
         # the exact stepwise chain ran, which the chain's model does not describe
         print("analytical model: n/a (stepwise fallback ran)")
     print(f"mcl: {len(clusters)} clusters ({dt * 1e3:.1f} ms)")
+    return 0
+
+
+def cmd_predict(args) -> int:
+    """``predict M1.mtx M2.mtx --mesh KX[,NY]``: both models of C = M1 · M2ᵀ
+    over a mesh, with no device work: the sharded plan's roofline
+    (``roofline.predict_sharded_tiled``) and the event model
+    (``perfsim.simulate_sharded_tiled``). Any mesh size may be modelled;
+    no card is needed."""
+    from outerspace_tpu_torch.formats import read_mtx
+    from outerspace_tpu_torch.ops.reference import spgemm_flops
+    from outerspace_tpu_torch.perf.roofline import predict_sharded_tiled
+    from outerspace_tpu_torch.shard.tiled import shard_plan_tiled
+
+    dims = _mesh_dims(args.mesh)
+    if dims is None:
+        return 2
+    kx, ny = dims
+    m1 = read_mtx(args.matrix1)
+    m2 = read_mtx(args.matrix2)
+    if not args.no_transpose:
+        m2 = m2.transpose()
+    a_csc, b_csr = m1.to_csc(), m2.to_csr()
+    if a_csc.shape[1] != b_csr.shape[0]:
+        print(f"dimension mismatch: {a_csc.shape} @ {b_csr.shape}", file=sys.stderr)
+        return 2
+    plan = shard_plan_tiled(a_csc, b_csr, kx=kx, ny=ny)
+    print(f"multiply flops: {spgemm_flops(a_csc, b_csr)}")
+    mode = "rebased per-bucket keys" if plan.rebase else "global keys"
+    print(f"mesh {kx}x{ny} ({mode}): per-device stream {plan.stream_len}, "
+          f"exchange capacity {plan.capacity} x{plan.chunks} chunk(s), "
+          f"merge {plan.merge_parts} part(s) x {plan.kx * plan.mcap}")
+    print(f"analytical sharded (roofline):  {predict_sharded_tiled(plan) * 1e3:.3f} ms")
+    print(_event_model_sharded(plan))
     return 0
 
 
@@ -439,10 +524,19 @@ def main(argv=None) -> int:
                         "each squaring on the host")
     p.set_defaults(fn=cmd_graph)
 
-    for name in ("predict", "bench"):
-        p = sub.add_parser(name, help="not ported yet", epilog=NOT_PORTED)
-        p.add_argument("rest", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
-        p.set_defaults(fn=lambda args: _not_ported())
+    p = sub.add_parser("predict", help="roofline and event model of the sharded "
+                       "C = M1 · M2ᵀ (host only, no card needed)", epilog=NOT_PORTED)
+    p.add_argument("matrix1")
+    p.add_argument("matrix2")
+    p.add_argument("--no-transpose", action="store_true",
+                   help="predict M1 · M2 instead of M1 · M2ᵀ")
+    p.add_argument("--mesh", default="1", metavar="KX[,NY]",
+                   help="the mesh to model, e.g. 4 or 4,2 (any size)")
+    p.set_defaults(fn=cmd_predict)
+
+    p = sub.add_parser("bench", help="not ported yet", epilog=NOT_PORTED)
+    p.add_argument("rest", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
+    p.set_defaults(fn=lambda args: _not_ported())
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -1,8 +1,20 @@
 """Performance models and instrumentation: the card's roofline
-(``perf/roofline.py``), scope timers and device-synchronised timing
-(``perf/timer.py``), and primitive micro-benchmarks
+(``perf/roofline.py``), the event model of the card's machine
+(``perf/perfsim.py`` over ``csrc/perfsim.cpp``; ``perf/simcal.py``
+measures its fields on the card), scope timers and device-synchronised
+timing (``perf/timer.py``), and primitive micro-benchmarks
 (``perf/microbench.py``)."""
 
+from outerspace_tpu_torch.perf.perfsim import (  # noqa: F401
+    CARD_CONFIG,
+    SPEC_CONFIG,
+    get_config,
+    set_config,
+    simulate_expand_cached,
+    simulate_mcl_sharded_iteration,
+    simulate_merge_parts,
+    simulate_sharded_tiled,
+)
 from outerspace_tpu_torch.perf.roofline import (  # noqa: F401
     GPUConfig,
     predict_merge_time,

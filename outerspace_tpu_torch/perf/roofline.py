@@ -32,12 +32,16 @@ class GPUConfig:
     """The card's constants, the counterpart of the JAX package's
     ``TPUConfig``. Defaults: one NVIDIA H100 SXM at its 700 W power
     limit, from NVIDIA's spec sheet, not measured: 3.35e12 B/s of HBM3,
-    67e12 float32 op/s outside the tensor cores, and 450e9 B/s of NVLink
-    out of each card (the sharded mode's exchange). A card set to a
-    lower power limit runs slower than these."""
+    67e12 float32 op/s outside the tensor cores, 989e12 dense bf16 op/s
+    in them, and 450e9 B/s of NVLink out of each card (the sharded
+    mode's exchange). A card set to a lower power limit runs slower than
+    these."""
 
     hbm_bw_bytes: float = 3.35e12  # spec sheet, not measured
     fp32_ops: float = 67e12  # spec sheet, not measured
+    # the tensor cores' dense bf16 rate (the event model's matrix unit):
+    # spec sheet, not measured
+    tensor_ops: float = 989e12
     # NVLink 4 out of one card, one direction (900 GB/s both ways, all to
     # all through the NVSwitch): spec sheet, not measured
     nvlink_bw_bytes: float = 450e9
@@ -209,8 +213,8 @@ def predict_mcl_sharded_iteration(plan, cfg: GPUConfig = GPUConfig()) -> float:
        all_gather along "y" and the A side's sort (``na`` slots).
 
     The counterpart of the JAX package's predictor, built from this
-    module's terms (the card's spec-sheet rates, not measured); the JAX
-    package's event-model twin waits for ``predict`` (ROADMAP A5)."""
+    module's terms (the card's spec-sheet rates, not measured); its
+    event-model twin is ``perf.perfsim.simulate_mcl_sharded_iteration``."""
     kx, ny = plan.kx, plan.ny
     merged = kx * plan.cap
     t = _stream_time(cfg, plan.p_pad, _FLAT_EXPAND_BYTES) + predict_sort_time(plan.p_pad, cfg)

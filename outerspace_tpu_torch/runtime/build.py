@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels with ``nvcc`` and its host libraries
-(the planner core, the Matrix Market reader, the CPU reference SpGEMM)
-with ``g++``, and load them with ``ctypes``.
+(the planner core, the Matrix Market reader, the CPU reference SpGEMM,
+the event model) with ``g++``, and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exports plain C launchers (no PyTorch headers),
 so one ``nvcc`` call builds it in seconds. Libraries go to ``build/`` at
@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 )
 KERNEL_SOURCES = ("gexpand", "scan", "expand", "spmm")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-HOST_SOURCES = ("gplan", "mtx_reader", "ref_spgemm")
+HOST_SOURCES = ("gplan", "mtx_reader", "ref_spgemm", "perfsim")
 
 
 def nvcc_path() -> str:

@@ -105,10 +105,13 @@ def test_missing_model_and_help(capsys):
     out = subprocess.run([sys.executable, "-m", "outerspace_tpu_torch.cli", "--help"], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0
-    assert "Not ported yet" in out.stdout and "predict" in out.stdout
-    # predict is not ported: exit 2 with the message; spgemm reads its files
-    assert cli.main(["predict", "a.mtx", "b.mtx"]) == 2
+    assert "Not ported yet" in out.stdout and "bench" in out.stdout
+    # bench is not ported: exit 2 with the message; predict and spgemm
+    # read their files
+    assert cli.main(["bench"]) == 2
     assert cli.NOT_PORTED in capsys.readouterr().err
+    with pytest.raises(FileNotFoundError):
+        cli.main(["predict", "a.mtx", "b.mtx"])
     with pytest.raises(FileNotFoundError):
         cli.main(["spgemm", "a.mtx", "b.mtx", "--device", "cpu"])
     with pytest.raises(SystemExit):

@@ -3,11 +3,11 @@ package's ``cli.main`` on the same files, both on the CPU (JAX with its
 Pallas kernels in interpret mode): the shape, nnz and FLOP lines, the
 ``--out`` files (structure equal, values within rtol 1e-5), the triangle
 and cluster counts; ``--set`` reaching ``spgemm``; exit 2 on a dimension
-mismatch; exit 2 with the ``NOT_PORTED`` message on ``predict`` and
-``bench``, and on a mesh that the cards cannot hold; ``graph mcl --mesh
---loop {host,device}`` on the CPU against the JAX package's on its 8
-virtual devices (``tests/test_torch_cli_sharded.py`` runs the other
-sharded options)."""
+mismatch; exit 2 with the ``NOT_PORTED`` message on ``bench``, on a
+mesh that the cards cannot hold, and on a mesh ``predict`` cannot read;
+``graph mcl --mesh --loop {host,device}`` on the CPU against the JAX
+package's on its 8 virtual devices (``tests/test_torch_cli_sharded.py``
+runs the other sharded options)."""
 
 import importlib
 import os
@@ -137,7 +137,8 @@ NO_CARD = "needs 8 cards for nccl"  # the sharded options are ported: nccl wants
     (["spgemm", "A", "B", "--mesh", "8", "--merge-parts", "2"], NO_CARD),
     (["graph", "triangles", "G", "--mesh", "2,4"], NO_CARD),
     (["graph", "mcl", "G", "--mesh", "4,2", "--loop", "device"], NO_CARD),
-    (["predict", "A", "B", "--mesh", "4"], cli.NOT_PORTED),
+    # predict is ported: it runs on the host and reads its mesh first
+    (["predict", "A", "B", "--mesh", "4,0"], "bad --mesh '4,0': expected KX or KX,NY"),
     (["bench"], cli.NOT_PORTED),
 ], ids=["spgemm_mesh", "chunks", "merge_parts", "graph_mesh", "loop", "predict", "bench"])
 def test_unported_options_exit_2(capsys, argv, message):
@@ -146,9 +147,9 @@ def test_unported_options_exit_2(capsys, argv, message):
     rc, out, err = run(cli.main, argv, capsys)
     assert rc == 2 and out == ""
     assert message in err
-    for name in ("predict", "bench", "queue A item 5", "queue A item 3"):
+    for name in ("bench", "queue A item 3", "benchmark PR"):
         assert name in cli.NOT_PORTED
-    for name in ("--mesh", "--loop", "queue A item 4"):  # ported
+    for name in ("predict", "--mesh", "--loop", "queue A item 4", "queue A item 5"):  # ported
         assert name not in cli.NOT_PORTED
 
 

@@ -6,8 +6,9 @@ native planner core), triangles are counted by both routes, a
 clustering runs through its staged chain and its host loop, the NN
 pipeline takes a training step, prunes, exports and trains through the
 ``nn`` CLI, and the CLI's ``spgemm`` (one operand gzipped) and ``graph
-triangles`` run with a ``.gz`` file read by the native reader; and no
-source of the port names either."""
+triangles`` run with a ``.gz`` file read by the native reader, the event
+model passes its selftests, the residency study runs and ``predict``
+models a mesh; and no source of the port names either."""
 
 import os
 import subprocess
@@ -124,6 +125,18 @@ with tempfile.TemporaryDirectory() as d:
     text = buf.getvalue()
     assert f"nnz: {spgemm_scipy(t, t).nnz}" in text
     assert f"triangles: {triangle_count(t, backend='scipy')} (" in text
+# the event model (its g++ build), the policies and the CLI's predict
+from outerspace_tpu_torch.perf import perfsim
+from outerspace_tpu_torch.sched import policies
+assert perfsim.selftests() == {"fifo": 0, "arbiter": 0, "ici": 0, "rowbuffer": 0}
+assert perfsim.get_config()["topology"] == "switch"
+assert policies.simulate_lru(policies.task_b_stream(t.to_csc(), t.to_csr()), 4)[1] > 0
+with tempfile.TemporaryDirectory() as d:
+    write_mtx(d + "/t.mtx", t)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["predict", d + "/t.mtx", d + "/t.mtx", "--mesh", "4,2"]) == 0
+    assert "event-model sharded:" in buf.getvalue()
 leaked = [m for m in sys.modules if m in Blocker.BLOCKED or m.startswith(("jax.", "outerspace_tpu."))]
 assert not leaked, leaked
 print("isolated", len(names))
@@ -138,7 +151,7 @@ def test_port_imports_and_runs_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("isolated")
-    assert int(out.stdout.split()[1]) >= 42
+    assert int(out.stdout.split()[1]) >= 45
 
 
 def port_sources():
@@ -152,7 +165,7 @@ def port_sources():
 
 def test_port_sources_name_no_jax():
     sources = list(port_sources())
-    assert len(sources) >= 51
+    assert len(sources) >= 56
     for path in sources:
         with open(path, encoding="utf-8") as f:
             text = f.read()
