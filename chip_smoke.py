@@ -76,6 +76,12 @@ checking every result exactly against scipy:
   the dp × tp MLP1w training step against one device, the multi-device
   dry run's jobs with its line, and ``graph mcl --mesh`` by both loops.
 
+- the benchmark suite (``outerspace_tpu_torch.bench.run_suite``, in
+  process, after the command line) on mtx_rmat10_a2, rmat14_ef8,
+  sparse_mlp_infer_b1024_spmm and triangles_rmat13: its records and
+  headline printed, the headline's shape and value checked, every
+  record's exactness fields true and its path's kernels launched;
+
 - the event model (``perf/perfsim.py`` over ``csrc/perfsim.cpp``, built
   with g++): its machine printed beside the fields ``perf/simcal.py``
   measures on this card, its four selftests passed under that machine;
@@ -245,29 +251,6 @@ def _split_ms(torch, plan_fn, run_fn, samples: int = 3, fetch=lambda merged: mer
         splits.append(((tb - ta) * 1e3, (tc - tb) * 1e3, (td - tc) * 1e3, mallocs))
         del plan, merged
     return sorted(splits, key=lambda x: sum(x[:3]))[len(splits) // 2][:3], splits, got
-
-
-def _strategy_fns(st, x_csc, x_csr, dev):
-    """(host plan incl. staging, device pipeline) of one strategy of
-    ``spgemm``, as ``_split_ms`` times them."""
-    from outerspace_tpu_torch.ops.gather_pipeline import plan_spgemm_gather, spgemm_gather_padded
-    from outerspace_tpu_torch.ops.spgemm import (
-        plan_tiled_parts,
-        plan_to_device,
-        spgemm_padded,
-        spgemm_padded_tiled_parts,
-    )
-    from outerspace_tpu_torch.ops.symbolic import expansion_plan
-
-    if st == "gather":
-        return lambda: plan_spgemm_gather(x_csc, x_csr, device=dev), spgemm_gather_padded
-    if st == "tiles":
-        return lambda: plan_tiled_parts(x_csc, x_csr, device=dev), spgemm_padded_tiled_parts
-
-    def plan_flat():
-        fp = expansion_plan(x_csc, x_csr)
-        return fp, plan_to_device(fp, dev)
-    return plan_flat, lambda planned: spgemm_padded(planned[0], device_args=planned[1])
 
 
 # kernel name fragments (as CUPTI reports the demangled names) by kernel;
@@ -992,6 +975,47 @@ def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want
     _phase("cli microbench and native reference", t1)
     _phase("cli", t0)
     return launches
+
+
+# the benchmark suite's workloads the smoke runs, and the kernels each
+# record's path must launch (by the strategy or route the record ran)
+BENCH_SUBSET = ("mtx_rmat10_a2", "rmat14_ef8", "sparse_mlp_infer_b1024_spmm", "triangles_rmat13")
+BENCH_PATHS = {"gather": ("K1", "K2"), "tiles": ("K1", "K2"), "flat": ("K2",),
+               "sparse": ("K3", "K1", "K2"), "dense": (), "mlp": ("K5",)}
+
+
+def _bench_phase(torch, dev, kernels) -> dict:
+    """The benchmark suite (``outerspace_tpu_torch.bench``) in process on
+    :data:`BENCH_SUBSET`: its records and headline printed here, the
+    headline's shape checked (the median speedup of the exact A² records,
+    above 0), every record's exactness fields true and its path's kernels
+    launched. Returns the phase's launches per kernel."""
+    from outerspace_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    for k in kernels.values():
+        k.launches = 0
+    head, records = bench.run_suite(BENCH_SUBSET, device=dev, out=sys.stdout, err=sys.stdout)
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in kernels.items()}
+    a2 = [r for r in records if r.get("name") in bench.A2_SUITE]
+    if (set(head) != {"metric", "value", "unit", "vs_baseline", "records"}
+            or head["metric"] != bench.METRIC or head["unit"] != "x"
+            or not head["value"] > 0 or head["vs_baseline"] != head["value"]
+            or head["records"] != len(a2) or head != bench.headline(a2)):
+        raise RuntimeError(f"bench headline {head}")
+    ran = [r.get("name") for r in records]
+    if ran != [n for n, _, _ in bench.WORKLOADS if n in BENCH_SUBSET] or not bench.passed(records):
+        raise RuntimeError(f"bench records failed, were shed or are not exact: {records}")
+    for rec in records:
+        path = BENCH_PATHS[rec.get("strategy", "mlp")]
+        missing = [n for n in path if not rec["launches"][n]]
+        if missing:
+            raise RuntimeError(f"bench {rec['name']}: kernels {missing} never launched")
+    print(f"bench ({', '.join(BENCH_SUBSET)}): headline {head['value']} x over {head['records']} "
+          f"A² records, every record exact; launches {counts}")
+    _phase("bench", t0)
+    return counts
 
 
 SHARDED_REPS = 3  # warm runs timed per sharded program
@@ -1772,6 +1796,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    from outerspace_tpu_torch import bench
     from outerspace_tpu_torch.convert import load_params, state_dict_from_params
     from outerspace_tpu_torch.formats import erdos_renyi, read_mtx, rmat
     from outerspace_tpu_torch.nn import sparse_infer
@@ -1780,7 +1805,7 @@ def main() -> int:
     from outerspace_tpu_torch.nn.models import make_model
     from outerspace_tpu_torch.ops import graph, spgemm
     from outerspace_tpu_torch.ops.gather_pipeline import plan_spgemm_gather
-    from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan, spmm
+    from outerspace_tpu_torch.ops.kernels import counters, expand, gexpand, scan, spmm
     from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_scipy
     from outerspace_tpu_torch.ops.spgemm import (
         I32_MAX,
@@ -1818,9 +1843,7 @@ def main() -> int:
     _phase("build", t0)
     _event_model_machine(dev)
 
-    kernels = {"K1": gexpand.KERNEL, "K2": scan.KERNEL,
-               "K3": expand.KERNEL_PACKED, "K4": expand.KERNEL_COORDS,
-               "K5": spmm.KERNEL}
+    kernels = counters()
 
     def drive(name, a, want, path, **kw):
         """One path once through the user entry point, counted: every
@@ -2287,7 +2310,7 @@ def main() -> int:
     for op, x_csc, x_csr, want in (("rmat14_ef8", a_csc, b_csr, want1),
                                    ("er100k", a2_csc, a2_csr, want2)):
         for st in ("gather", "tiles", "flat"):
-            splits[op, st], samples, got = _split_ms(torch, *_strategy_fns(st, x_csc, x_csr, dev))
+            splits[op, st], samples, got = _split_ms(torch, *bench.strategy_fns(st, x_csc, x_csr, dev))
             assert_csr_allclose(got, want, rtol=VAL_RTOL, atol=VAL_ATOL)
             plan_ms, device_ms, fetch_ms = splits[op, st]
             print(f"{op} {st} end to end {plan_ms + device_ms + fetch_ms:.3f} ms: host plan "
@@ -2316,6 +2339,10 @@ def main() -> int:
     for k, c in cli_launches.items():
         launches[k] = launches.get(k, 0) + c
 
+    # ---- the benchmark suite's smoke subset, in process
+    for k, c in _bench_phase(torch, dev, kernels).items():
+        launches[k] += c
+
     # ---- the sharded mode: a world of 1 on nccl, 8 ranks sharing the card, --mesh
     cli_dir = ROOT / "build" / "chip_smoke_cli"
     sharded = _sharded_phase(torch, np, dev, want1, tri_want, str(cli_dir / "rmat14_ef8.mtx"),
@@ -2324,7 +2351,7 @@ def main() -> int:
     for k, c in sharded["launches"].items():
         launches[k] += c
 
-    pipelines = [(st, *_strategy_fns(st, a_csc, b_csr, dev)) for st in ("gather", "tiles")]
+    pipelines = [(st, *bench.strategy_fns(st, a_csc, b_csr, dev)) for st in ("gather", "tiles")]
     pipelines = [(st, plan_fn(), run_fn) for st, plan_fn, run_fn in pipelines]
 
     # the triangle routes, each from the symmetric adjacency on the host

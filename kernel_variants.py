@@ -306,6 +306,7 @@ def time_routes(torch, dev, a):
     cache is emptied. Every result is held to scipy's."""
     import numpy as np
 
+    from outerspace_tpu_torch.bench import strategy_fns
     from outerspace_tpu_torch.formats.csr import CSR
     from outerspace_tpu_torch.ops.chain import compact_to_csr_device
     from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_scipy
@@ -315,7 +316,7 @@ def time_routes(torch, dev, a):
     a_csc, a_csr = a.to_csc(), a.to_csr()
 
     def split(st, fetch=lambda merged: merged.to_csr(), samples=3):
-        med, every, got = smoke._split_ms(torch, *smoke._strategy_fns(st, a_csc, a_csr, dev),
+        med, every, got = smoke._split_ms(torch, *strategy_fns(st, a_csc, a_csr, dev),
                                           samples=samples, fetch=fetch)
         assert_csr_allclose(got, want, rtol=smoke.VAL_RTOL, atol=smoke.VAL_ATOL)
         return med, every

@@ -6,6 +6,7 @@
         [--mesh KX[,NY] [--loop {host,device}] [--dist-backend {nccl,gloo}]]
     python -m outerspace_tpu_torch.cli nn --mode {train,prune,finetune,eval,pf,export} ...
     python -m outerspace_tpu_torch.cli predict M1.mtx M2.mtx [--no-transpose] [--mesh KX[,NY]]
+    python -m outerspace_tpu_torch.cli bench [--only NAME[,NAME...]] [--small]
 
 ``spgemm`` reads two Matrix Market files and computes C = M1 · M2ᵀ
 (``--no-transpose``: M1 · M2), then prints C's shape and nnz, the
@@ -36,10 +37,12 @@ the pruned model with its zeros kept, evaluate it on the test split,
 ``export`` (the weights and one test batch's activations as ``.mtx``
 SpGEMM operands); ``--data mnist`` without idx files
 (``nn.data.find_mnist_dir``) trains on ``synthetic_mnist`` instead.
+``bench`` runs the benchmark suite (``outerspace_tpu_torch.bench``): one
+JSON record per workload on the standard error, the headline line on the
+standard output, exit 1 if a record failed or is not exact.
 
 The arguments and defaults are the JAX package's ``cli.py``; ``--device``
-(default ``cuda``) picks where the work runs. The ``bench`` subcommand is
-recognised and answered with :data:`NOT_PORTED` (exit 2).
+(default ``cuda``) picks where the work runs.
 """
 
 from __future__ import annotations
@@ -50,18 +53,9 @@ import importlib.util
 import sys
 import time
 
+from outerspace_tpu_torch import bench
+
 SHARDED_REPS = 3  # timed runs of spgemm --mesh after its first run
-
-NOT_PORTED = (
-    "Not ported yet: bench. The port's benchmark is the job of a benchmark PR "
-    "(ROADMAP queue A item 3); the root bench.py belongs to the JAX package."
-)
-
-
-def _not_ported() -> int:
-    print(NOT_PORTED, file=sys.stderr)
-    return 2
-
 
 def _sync(device) -> None:
     import torch
@@ -465,10 +459,10 @@ def _mesh_arguments(p) -> None:
 
 
 def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(prog="outerspace_tpu_torch", epilog=NOT_PORTED)
+    parser = argparse.ArgumentParser(prog="outerspace_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("spgemm", help="C = M1 · M2ᵀ from .mtx operands", epilog=NOT_PORTED)
+    p = sub.add_parser("spgemm", help="C = M1 · M2ᵀ from .mtx operands")
     p.add_argument("matrix1")
     p.add_argument("matrix2")
     p.add_argument("--strategy", default="auto", choices=["auto", "flat", "tiles", "gather"])
@@ -487,8 +481,7 @@ def main(argv=None) -> int:
                         "pairs a part; 1 on a one-rank k axis, whose merge skips its sort)")
     p.set_defaults(fn=cmd_spgemm)
 
-    p = sub.add_parser("nn", help="NN pipeline (train/prune/finetune/eval/pf/export)",
-                       epilog=NOT_PORTED)
+    p = sub.add_parser("nn", help="NN pipeline (train/prune/finetune/eval/pf/export)")
     p.add_argument("--mode", required=True,
                    choices=["train", "prune", "finetune", "eval", "pf", "export"])
     p.add_argument("--model_type", default="MLP1", choices=["MLP1", "MLP1w", "LeNet"])
@@ -508,7 +501,7 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs there)")
     p.set_defaults(fn=cmd_nn)
 
-    p = sub.add_parser("graph", help="graph kernels via repeated A²", epilog=NOT_PORTED)
+    p = sub.add_parser("graph", help="graph kernels via repeated A²")
     p.add_argument("kernel", choices=["triangles", "mcl"])
     p.add_argument("matrix")
     p.add_argument("--backend", default="torch", choices=["torch", "scipy"])
@@ -525,7 +518,7 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_graph)
 
     p = sub.add_parser("predict", help="roofline and event model of the sharded "
-                       "C = M1 · M2ᵀ (host only, no card needed)", epilog=NOT_PORTED)
+                       "C = M1 · M2ᵀ (host only, no card needed)")
     p.add_argument("matrix1")
     p.add_argument("matrix2")
     p.add_argument("--no-transpose", action="store_true",
@@ -534,9 +527,9 @@ def main(argv=None) -> int:
                    help="the mesh to model, e.g. 4 or 4,2 (any size)")
     p.set_defaults(fn=cmd_predict)
 
-    p = sub.add_parser("bench", help="not ported yet", epilog=NOT_PORTED)
-    p.add_argument("rest", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
-    p.set_defaults(fn=lambda args: _not_ported())
+    p = sub.add_parser("bench", help="the benchmark suite (one JSON headline line)")
+    bench.add_arguments(p)
+    p.set_defaults(fn=bench.run_args)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -71,6 +71,11 @@ class GatherPipelinePlan:
     def flops(self) -> int:
         return sum(p.p_real for p in self.parts)
 
+    @property
+    def padded_total(self) -> int:
+        """Slots of the parts' merge streams (sentinel tails included)."""
+        return sum(p.merge_pad for p in self.parts)
+
 
 def _to_device(host: dict, call_bits, ngroups: int, device) -> dict[str, torch.Tensor]:
     """Copy staged host arrays to ``device``."""

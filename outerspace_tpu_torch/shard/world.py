@@ -44,13 +44,6 @@ import statistics
 import time
 
 
-def _kernels():
-    from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan, spmm
-
-    return {"K1": gexpand.KERNEL, "K2": scan.KERNEL, "K3": expand.KERNEL_PACKED,
-            "K4": expand.KERNEL_COORDS, "K5": spmm.KERNEL}
-
-
 def _timed(fn, device) -> float:
     """Seconds of one ``fn()`` with every rank started together."""
     import torch
@@ -185,10 +178,11 @@ def run_jobs(jobs: list[dict]) -> list[dict]:
     (every rank runs the same list); returns one result per job."""
     import torch
 
+    from outerspace_tpu_torch.ops.kernels import counters
     from outerspace_tpu_torch.shard.mesh import make_mesh
     from outerspace_tpu_torch.shard.spgemm_sharded import gather_to_csr
 
-    kernels = _kernels()
+    kernels = counters()
     meshes, results = {}, []
     default_axes = {"serve": ("dp",), "train": ("dp", "tp")}
     for job in jobs:

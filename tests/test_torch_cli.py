@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from outerspace_tpu_torch import cli
+from outerspace_tpu_torch import bench, cli
 from outerspace_tpu_torch.convert import load_params
 from outerspace_tpu_torch.nn.data import synthetic_mnist
 from outerspace_tpu_torch.nn.sparse_infer import SparseLeNet, SparseMLP, mlp_forward_dense
@@ -105,11 +105,12 @@ def test_missing_model_and_help(capsys):
     out = subprocess.run([sys.executable, "-m", "outerspace_tpu_torch.cli", "--help"], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0
-    assert "Not ported yet" in out.stdout and "bench" in out.stdout
-    # bench is not ported: exit 2 with the message; predict and spgemm
-    # read their files
-    assert cli.main(["bench"]) == 2
-    assert cli.NOT_PORTED in capsys.readouterr().err
+    assert "bench" in out.stdout and "Not ported" not in out.stdout
+    # every subcommand is ported: bench refuses an unknown workload (exit
+    # 2, naming the suite's workloads); predict and spgemm read their files
+    assert cli.main(["bench", "--only", "nosuch"]) == 2
+    err = capsys.readouterr().err
+    assert "nosuch" in err and all(name in err for name, _, _ in bench.WORKLOADS)
     with pytest.raises(FileNotFoundError):
         cli.main(["predict", "a.mtx", "b.mtx"])
     with pytest.raises(FileNotFoundError):
