@@ -23,9 +23,9 @@ to find, and it imports nothing of that package:
 - ``cli``      — ``python -m outerspace_tpu_torch.cli``: ``spgemm M1.mtx
   M2.mtx`` (C = M1·M2ᵀ with the roofline beside the measured time),
   ``graph {triangles,mcl} G.mtx`` and ``nn ...`` (the NN pipeline).
-- ``perf``     — the card's roofline (``perf.roofline``), timers with
-  CUDA events (``perf.timer``) and primitive micro-benchmarks
-  (``perf.microbench``).
+- ``perf``     — the card's roofline (``perf.roofline``), the program's
+  spans and counters and timing with CUDA events (``perf.timer``) and
+  primitive micro-benchmarks (``perf.microbench``).
 - ``convert``  — operands, plans and trained weights carried across from
   the JAX package's formats.
 - ``runtime``  — builds the hand-written CUDA kernels in ``csrc/`` with

@@ -31,6 +31,12 @@ per-column sums of the column normalisation with ``n_cols=1``). Where the
 JAX code works in uint32, the port carries the values in int64, which is
 exact below 2³²; the keys that come out are bit-equal to the JAX
 package's.
+
+Spans (``perf.timer.span``, recorded only under the profiler): the
+staged chain's stages ``mcl.square1``, ``mcl.iteration`` and
+``mcl.finish``, and its phases ``expand``, ``sort`` (:func:`_sort_pair`),
+``merge`` (K2) and ``compact`` (prune, compaction, inflation and
+column normalisation).
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from outerspace_tpu_torch.ops.spgemm import (
     unpack_key_biased,
 )
 from outerspace_tpu_torch.ops.symbolic import round_up_bucket
+from outerspace_tpu_torch.perf.timer import span
 
 _U32 = 2**32
 # the survivor caps of the JAX package's blocked compaction are per block
@@ -101,9 +108,10 @@ def _fit(key, val, size: int):
 
 
 def _sort_pair(key, val):
-    """(key, value) sorted by key; not stable."""
-    key, order = torch.sort(key)
-    return key, val[order]
+    """(key, value) sorted by key; not stable. A ``sort`` span."""
+    with span("sort"):
+        key, order = torch.sort(key)
+        return key, val[order]
 
 
 def front_compact(rows, cols, vals, valid, size: int, sentinel: int):
@@ -158,19 +166,21 @@ def spgemm_from_device_csr(a_rows, a_cols, a_vals, b_cols, b_vals, b_indptr, *,
     valid, nnz) of length ``p_pad``; requires m·n < 2³²."""
     valid_a = a_rows < m
     csc_key = torch.where(valid_a, pack_key_biased(a_cols, a_rows, m), I32_MAX)
-    _, order = torch.sort(csc_key)
-    rows_s, cols_s, vals_s = a_rows[order], a_cols[order], a_vals[order]
-    valid_s = rows_s < m
-    a_k = torch.where(valid_s, cols_s, 0)
-    deg = torch.where(valid_s, b_indptr[a_k.long() + 1] - b_indptr[a_k.long()], 0)
-    offsets = torch.cat([deg.new_zeros(1, dtype=torch.int64), torch.cumsum(deg, 0)])
-    p_total = offsets[-1]
-    r, c, v = expand_partial_products(
-        torch.where(valid_s, rows_s, m), torch.where(valid_s, vals_s, 0.0), a_k,
-        b_indptr, b_cols, b_vals, offsets, p_total, p_pad, m,
-    )
-    key = torch.where(torch.arange(p_pad, device=r.device) < p_total,
-                      pack_key_biased(r, c, n), I32_MAX)
+    with span("sort"):
+        _, order = torch.sort(csc_key)
+        rows_s, cols_s, vals_s = a_rows[order], a_cols[order], a_vals[order]
+    with span("expand"):
+        valid_s = rows_s < m
+        a_k = torch.where(valid_s, cols_s, 0)
+        deg = torch.where(valid_s, b_indptr[a_k.long() + 1] - b_indptr[a_k.long()], 0)
+        offsets = torch.cat([deg.new_zeros(1, dtype=torch.int64), torch.cumsum(deg, 0)])
+        p_total = offsets[-1]
+        r, c, v = expand_partial_products(
+            torch.where(valid_s, rows_s, m), torch.where(valid_s, vals_s, 0.0), a_k,
+            b_indptr, b_cols, b_vals, offsets, p_total, p_pad, m,
+        )
+        key = torch.where(torch.arange(p_pad, device=r.device) < p_total,
+                          pack_key_biased(r, c, n), I32_MAX)
     # every slot counts as padding for K2: no real key is the sentinel
     # below 2³², and P stays on the card
     return merge_biased_keys(key, v, n, m, p_pad)
@@ -389,49 +399,51 @@ def _mcl_iteration(state, *, p_pad: int, elem_pad: int, m: int, inflation: float
         raise ValueError(f"join={join!r}: expected 'auto', 'fill', or 'gather'")
     kcsc, vals, starts_ext, ok = state
     dev = kcsc.device
-    ku = _ukey(kcsc)
-    col_f = (ku // m).to(torch.int32)
-    row_f = (ku % m).to(torch.int32)
-    valid_f = kcsc != I32_MAX
-    indptr = starts_ext
-    col_deg = indptr[1:] - indptr[:-1]
-    # element f = (k=row_f, c=col_f) pairs with CSC column row_f
-    a_k = torch.where(valid_f, row_f, 0)
-    deg = torch.where(valid_f, col_deg[a_k.long().clamp(max=m - 1)], 0)
-    offsets = torch.cat([deg.new_zeros(1, dtype=torch.int64), torch.cumsum(deg, 0)])
-    p_total = offsets[-1]
-    p_f = deg.to(torch.float32).sum()
-    ok = (ok & (p_total >= 0) & (p_total <= p_pad)
-          & (p_f <= p_pad * 1.001 + 1024.0)
-          & ((p_f - p_total.to(torch.float32)).abs() <= 0.01 * p_f + 1024.0))
-    p_clamped = p_total.clamp(0, p_pad)
-    if join == "auto":
-        join = loop_join(elem_pad, m, dev)
-    if join == "fill":
-        key, v = _loop_expand_fill(kcsc, vals, col_f, valid_f, indptr[a_k.long()], offsets,
-                                   p_clamped, p_pad=p_pad, elem_pad=elem_pad, m=m)
-    else:
-        c_bcast, r_gath, v = expand_partial_products(
-            torch.where(valid_f, col_f, m), torch.where(valid_f, vals, 0.0),
-            a_k, indptr, row_f, vals, offsets, p_clamped, p_pad, m,
-        )
-        key = torch.where(torch.arange(p_pad, device=dev) < p_clamped,
-                          pack_key_biased(c_bcast, r_gath, m), I32_MAX)
+    with span("expand"):
+        ku = _ukey(kcsc)
+        col_f = (ku // m).to(torch.int32)
+        row_f = (ku % m).to(torch.int32)
+        valid_f = kcsc != I32_MAX
+        indptr = starts_ext
+        col_deg = indptr[1:] - indptr[:-1]
+        # element f = (k=row_f, c=col_f) pairs with CSC column row_f
+        a_k = torch.where(valid_f, row_f, 0)
+        deg = torch.where(valid_f, col_deg[a_k.long().clamp(max=m - 1)], 0)
+        offsets = torch.cat([deg.new_zeros(1, dtype=torch.int64), torch.cumsum(deg, 0)])
+        p_total = offsets[-1]
+        p_f = deg.to(torch.float32).sum()
+        ok = (ok & (p_total >= 0) & (p_total <= p_pad)
+              & (p_f <= p_pad * 1.001 + 1024.0)
+              & ((p_f - p_total.to(torch.float32)).abs() <= 0.01 * p_f + 1024.0))
+        p_clamped = p_total.clamp(0, p_pad)
+        if join == "auto":
+            join = loop_join(elem_pad, m, dev)
+        if join == "fill":
+            key, v = _loop_expand_fill(kcsc, vals, col_f, valid_f, indptr[a_k.long()], offsets,
+                                       p_clamped, p_pad=p_pad, elem_pad=elem_pad, m=m)
+        else:
+            c_bcast, r_gath, v = expand_partial_products(
+                torch.where(valid_f, col_f, m), torch.where(valid_f, vals, 0.0),
+                a_k, indptr, row_f, vals, offsets, p_clamped, p_pad, m,
+            )
+            key = torch.where(torch.arange(p_pad, device=dev) < p_clamped,
+                              pack_key_biased(c_bcast, r_gath, m), I32_MAX)
     key_s, v_s = _sort_pair(key, v)
     # the stream length as pad_count: no real key is the sentinel
     _, _, v2, valid2, _ = merge_epilogue(key_s, v_s, m, m, key_s.shape[0])
-    thr_root = _f32(float(threshold) ** (1.0 / float(inflation)))
-    v2r = torch.where(valid2, torch.clamp(v2, min=0.0), 0.0)
-    survive = valid2 & (v2r > thr_root)
-    ok = ok & (survive.sum() <= elem_pad)
-    if blk_cap:
-        ok = ok & _blocks_within(survive, blk_cap)
-    # the merged stream is sorted, so compaction in order keeps it sorted
-    k_next, vp_next = _to_front(survive, elem_pad, (key_s, I32_MAX), (v2r, 0.0))
-    vp_next = torch.pow(vp_next, inflation)
-    starts_next = _column_starts(k_next, m)
-    colsum = _csc_colnorm_sorted(_col_keys(k_next, m), vp_next, m, starts_next)
-    v_next = torch.where(k_next != I32_MAX, vp_next / colsum, 0.0)
+    with span("compact", device=dev):
+        thr_root = _f32(float(threshold) ** (1.0 / float(inflation)))
+        v2r = torch.where(valid2, torch.clamp(v2, min=0.0), 0.0)
+        survive = valid2 & (v2r > thr_root)
+        ok = ok & (survive.sum() <= elem_pad)
+        if blk_cap:
+            ok = ok & _blocks_within(survive, blk_cap)
+        # the merged stream is sorted, so compaction in order keeps it sorted
+        k_next, vp_next = _to_front(survive, elem_pad, (key_s, I32_MAX), (v2r, 0.0))
+        vp_next = torch.pow(vp_next, inflation)
+        starts_next = _column_starts(k_next, m)
+        colsum = _csc_colnorm_sorted(_col_keys(k_next, m), vp_next, m, starts_next)
+        v_next = torch.where(k_next != I32_MAX, vp_next / colsum, 0.0)
     return k_next, v_next, starts_next, ok
 
 
@@ -541,6 +553,9 @@ def mcl_whole_traced(tplan, *, p_pad: int, nnz_pad: int, m: int, n_cols: int, it
     (:func:`_mcl_iteration`), and one row-major sort. Returns (rows
     [nnz_pad], cols, vals, nnz, ok): ``ok`` guards every budget, so the
     caller falls back to the exact stepwise chain when it is false.
+    Spans: ``mcl.square1``, then ``compact``, one ``mcl.iteration`` per
+    loop iteration (attribute ``iteration``: 2 for the first), and
+    ``mcl.finish``.
 
     ``p_pads``: one product budget per loop iteration (P collapses as the
     flow converges; each is capped by ``p_pad`` and at least
@@ -551,42 +566,46 @@ def mcl_whole_traced(tplan, *, p_pad: int, nnz_pad: int, m: int, n_cols: int, it
     it, so the same inputs take the same path here."""
     if inflation <= 0.0:
         raise ValueError(f"inflation must be positive, got {inflation}")
-    sq = _stage1_squaring(tplan)
-    L = sq.rows.shape[0]
-    # prune on the raw merged values (v^p > t ⟺ v > t^(1/p) for v ≥ 0,
-    # p > 0), so the power runs after the compaction on survivors only
-    thr_root = _f32(float(threshold) ** (1.0 / float(inflation)))
-    v_raw = torch.where(sq.valid, torch.clamp(sq.vals, min=0.0), 0.0)
-    survive = sq.valid & (v_raw > thr_root)
-    kcsc = torch.where(survive, pack_key_biased(sq.cols, sq.rows, m), I32_MAX)
-    if elem_pad is None:
-        elem_pad = round_up_bucket(4 * nnz_pad, min_size=4096)
-    elem_pad = min(max(elem_pad, nnz_pad), p_pad)
-    ok = survive.sum() <= elem_pad
-    cap1 = blk_caps[0] if blk_caps else 0
-    if cap1 and L >= 16 * elem_pad:
-        kp, vp, ok_cap = compact_masked_stream(kcsc, v_raw, elem_pad, cap=cap1)
-        ok = ok & ok_cap
-    else:
-        kp, vp = _sort_pair(*_to_front(survive, elem_pad, (kcsc, I32_MAX), (v_raw, 0.0)))
-    valid1 = kp != I32_MAX
-    vp = torch.where(valid1, torch.pow(torch.clamp(vp, min=0.0), inflation), 0.0)
-    starts1 = _column_starts(kp, m)
-    colsum = _csc_colnorm_sorted(_col_keys(kp, m), vp, m, starts1)
-    state = (kp, torch.where(valid1, vp / colsum, 0.0), starts1, ok)
     if p_pads is None:
         p_pads = (p_pad,) * iters
     if len(p_pads) != iters:
         raise ValueError(f"p_pads has {len(p_pads)} entries for {iters} iterations")
+    if elem_pad is None:
+        elem_pad = round_up_bucket(4 * nnz_pad, min_size=4096)
+    elem_pad = min(max(elem_pad, nnz_pad), p_pad)
+    with span("mcl.square1"):
+        sq = _stage1_squaring(tplan)
+    with span("compact", device=sq.rows.device):
+        L = sq.rows.shape[0]
+        # prune on the raw merged values (v^p > t ⟺ v > t^(1/p) for v ≥ 0,
+        # p > 0), so the power runs after the compaction on survivors only
+        thr_root = _f32(float(threshold) ** (1.0 / float(inflation)))
+        v_raw = torch.where(sq.valid, torch.clamp(sq.vals, min=0.0), 0.0)
+        survive = sq.valid & (v_raw > thr_root)
+        kcsc = torch.where(survive, pack_key_biased(sq.cols, sq.rows, m), I32_MAX)
+        ok = survive.sum() <= elem_pad
+        cap1 = blk_caps[0] if blk_caps else 0
+        if cap1 and L >= 16 * elem_pad:
+            kp, vp, ok_cap = compact_masked_stream(kcsc, v_raw, elem_pad, cap=cap1)
+            ok = ok & ok_cap
+        else:
+            kp, vp = _sort_pair(*_to_front(survive, elem_pad, (kcsc, I32_MAX), (v_raw, 0.0)))
+        valid1 = kp != I32_MAX
+        vp = torch.where(valid1, torch.pow(torch.clamp(vp, min=0.0), inflation), 0.0)
+        starts1 = _column_starts(kp, m)
+        colsum = _csc_colnorm_sorted(_col_keys(kp, m), vp, m, starts1)
+        state = (kp, torch.where(valid1, vp / colsum, 0.0), starts1, ok)
     # a cap schedule of the wrong length is dropped: it only saves time
     iter_caps = blk_caps[1:] if blk_caps and len(blk_caps) == iters + 1 else (0,) * iters
-    for pp, cap in zip(p_pads, iter_caps):
-        state = _mcl_iteration(state, p_pad=max(min(pp, p_pad), elem_pad), elem_pad=elem_pad,
-                               m=m, inflation=inflation, threshold=threshold, blk_cap=cap,
-                               join=join)
-    k_out, v_out, _, ok = state
-    valid = k_out != I32_MAX
-    nnz = valid.sum(dtype=torch.int32)
-    ok = ok & (nnz <= nnz_pad)
-    r2, c2, v2 = _from_csc_state(k_out, v_out, m=m, n=n_cols, nnz_pad=nnz_pad)
+    for i, (pp, cap) in enumerate(zip(p_pads, iter_caps)):
+        with span("mcl.iteration", iteration=i + 2):
+            state = _mcl_iteration(state, p_pad=max(min(pp, p_pad), elem_pad),
+                                   elem_pad=elem_pad, m=m, inflation=inflation,
+                                   threshold=threshold, blk_cap=cap, join=join)
+    with span("mcl.finish"):
+        k_out, v_out, _, ok = state
+        valid = k_out != I32_MAX
+        nnz = valid.sum(dtype=torch.int32)
+        ok = ok & (nnz <= nnz_pad)
+        r2, c2, v2 = _from_csc_state(k_out, v_out, m=m, n=n_cols, nnz_pad=nnz_pad)
     return r2, c2, v2, nnz, ok

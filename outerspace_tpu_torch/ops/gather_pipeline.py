@@ -32,6 +32,7 @@ from outerspace_tpu_torch.ops.spgemm import (
     empty_csr,
     merge_biased_keys,
 )
+from outerspace_tpu_torch.perf.timer import span
 from outerspace_tpu_torch.sched.gplanner import (
     WIDE_B_WIN,
     call_search_bits,
@@ -78,9 +79,10 @@ class GatherPipelinePlan:
 
 
 def _to_device(host: dict, call_bits, ngroups: int, device) -> dict[str, torch.Tensor]:
-    """Copy staged host arrays to ``device``."""
-    dev = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
-    dev["group_bits"] = torch.from_numpy(group_search_bits(call_bits, ngroups)).to(device)
+    """Copy staged host arrays to ``device`` (a ``spgemm.stage`` span)."""
+    with span("spgemm.stage"):
+        dev = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        dev["group_bits"] = torch.from_numpy(group_search_bits(call_bits, ngroups)).to(device)
     return dev
 
 
@@ -203,45 +205,51 @@ def plan_spgemm_gather(
 
 
 def run_part(part: GatherPart, n_cols: int, sentinel_row: int):
-    """One row part: K1 → sentinel pad to ``merge_pad`` → sort → K2.
-    Returns part-local (rows, cols, vals, valid, nnz)."""
+    """One row part: K1 → sentinel pad to ``merge_pad`` (an ``expand``
+    span) → sort → K2. Returns part-local (rows, cols, vals, valid,
+    nnz)."""
     dev = part.dev
-    key, vals = expand_gather(
-        dev["bases"], dev["table"], dev["a_pack"], dev["b_pack"],
-        dev["group_bits"], b_win=part.b_win,
-    )
-    extra = part.merge_pad - key.shape[0]
-    if extra:
-        key = torch.cat([key, key.new_full((extra,), I32_MAX)])
-        vals = torch.cat([vals, vals.new_zeros(extra)])
+    with span("expand"):
+        key, vals = expand_gather(
+            dev["bases"], dev["table"], dev["a_pack"], dev["b_pack"],
+            dev["group_bits"], b_win=part.b_win,
+        )
+        extra = part.merge_pad - key.shape[0]
+        if extra:
+            key = torch.cat([key, key.new_full((extra,), I32_MAX)])
+            vals = torch.cat([vals, vals.new_zeros(extra)])
     return merge_biased_keys(
         key, vals, n_cols, sentinel_row, part.merge_pad - part.p_real
     )
 
 
 def spgemm_gather_padded(plan: GatherPipelinePlan) -> MergedCOO:
-    """Run all row parts in order and concatenate into one MergedCOO.
+    """Run all row parts in order and concatenate into one MergedCOO
+    (the rows rebased and the parts joined in a ``merge`` span).
     Launches are asynchronous, so the parts queue back to back."""
-    rows_l, cols_l, vals_l, valid_l, nnz = [], [], [], [], 0
-    for p in plan.parts:
-        r, c, v, valid, pn = run_part(p, plan.n, plan.m)
-        rows_l.append(torch.where(valid, r + p.row_base, plan.m))
-        cols_l.append(c)
-        vals_l.append(v)
-        valid_l.append(valid)
-        nnz = nnz + pn
-    return MergedCOO(
-        (plan.m, plan.n),
-        torch.cat(rows_l), torch.cat(cols_l), torch.cat(vals_l),
-        torch.cat(valid_l), nnz,
-    )
+    parts = [(p.row_base, run_part(p, plan.n, plan.m)) for p in plan.parts]
+    with span("merge"):
+        rows_l, cols_l, vals_l, valid_l, nnz = [], [], [], [], 0
+        while parts:  # each part's local rows go once rebased
+            row_base, (r, c, v, valid, pn) = parts.pop(0)
+            rows_l.append(torch.where(valid, r + row_base, plan.m))
+            cols_l.append(c)
+            vals_l.append(v)
+            valid_l.append(valid)
+            nnz = nnz + pn
+        return MergedCOO(
+            (plan.m, plan.n),
+            torch.cat(rows_l), torch.cat(cols_l), torch.cat(vals_l),
+            torch.cat(valid_l), nnz,
+        )
 
 
 def spgemm_gather(a, b, device: str | torch.device = "cuda") -> CSR:
     """C = A @ B via the row-split windowed-gather pipeline."""
     a_csc = a if isinstance(a, CSC) else a.to_csc()
     b_csr = b if isinstance(b, CSR) else b.to_csr()
-    plan = plan_spgemm_gather(a_csc, b_csr, device=device)
+    with span("spgemm.plan"):
+        plan = plan_spgemm_gather(a_csc, b_csr, device=device)
     if not plan.parts:  # no partial products
         return empty_csr(plan.m, plan.n)
     return spgemm_gather_padded(plan).to_csr()

@@ -40,6 +40,7 @@ from outerspace_tpu_torch.formats.coo import COO
 from outerspace_tpu_torch.formats.csr import CSR
 from outerspace_tpu_torch.ops.chain import CAP_BLOCK
 from outerspace_tpu_torch.ops.symbolic import round_up_bucket
+from outerspace_tpu_torch.perf.timer import count, span
 
 # The selector's weights (ns), from ``chip_smoke.py``'s triangles phase
 # on rmat(13, edge_factor=8, seed=4): each route's time, from the
@@ -645,7 +646,12 @@ def mcl_run(prep: dict):
     The budgets come from ``prep``, else the sizing cache, else the host
     sweep (:func:`mcl_size`). If ``ok`` is false, the exact stepwise
     chain runs from the first squaring's flow, and the budgets double
-    (single-size, no caps) for the next run and in the cache."""
+    (single-size, no caps) for the next run and in the cache.
+
+    A run is an ``mcl.run`` span (attribute ``fallback``) over the
+    chain's stages, ``mcl.wait`` (the read of ``ok``) and, when taken,
+    ``mcl.fallback``; it counts ``mcl.runs``, and ``mcl.fallbacks`` when
+    ``ok`` was false."""
     from outerspace_tpu_torch.ops.chain import (
         _stage1_squaring,
         inflate_device,
@@ -657,22 +663,30 @@ def mcl_run(prep: dict):
 
     tplan, n = prep["tplan"], prep["n"]
     inflation, iters, threshold = prep["inflation"], prep["iters"], prep["threshold"]
-    if "p_pad" not in prep and not ("sizing_key" in prep and _from_cache(prep)):
-        mcl_size(prep)
-    prep["ran_with"] = _budgets(prep)
-    r, c, v, nnz, ok = mcl_whole_traced(
-        tplan, p_pad=prep["p_pad"], nnz_pad=prep["nnz_pad"], m=n, n_cols=n,
-        iters=iters - 1, inflation=inflation, threshold=threshold,
-        elem_pad=prep.get("elem_pad"), p_pads=prep.get("p_pads"), blk_caps=prep.get("blk_caps"),
-    )
-    if bool(ok):
-        return MergedCOO((n, n), r, c, v, torch.arange(r.shape[0], device=r.device) < nnz, nnz)
-    sq = _stage1_squaring(tplan)
-    v1, valid1, nnz1 = inflate_device(sq.rows, sq.cols, sq.vals, sq.valid, m=n,
-                                      inflation=inflation, threshold=threshold)
-    out = markov_cluster_device_fused(MergedCOO(sq.shape, sq.rows, sq.cols, v1, valid1, nnz1),
-                                      inflation=inflation, iters=iters - 1,
-                                      prune_threshold=threshold)
+    count("mcl.runs")
+    with span("mcl.run") as run:
+        if "p_pad" not in prep and not ("sizing_key" in prep and _from_cache(prep)):
+            mcl_size(prep)
+        prep["ran_with"] = _budgets(prep)
+        r, c, v, nnz, ok = mcl_whole_traced(
+            tplan, p_pad=prep["p_pad"], nnz_pad=prep["nnz_pad"], m=n, n_cols=n,
+            iters=iters - 1, inflation=inflation, threshold=threshold,
+            elem_pad=prep.get("elem_pad"), p_pads=prep.get("p_pads"),
+            blk_caps=prep.get("blk_caps"),
+        )
+        with span("mcl.wait"):
+            fast = bool(ok)
+        run.set(fallback=not fast)
+        if fast:
+            return MergedCOO((n, n), r, c, v, torch.arange(r.shape[0], device=r.device) < nnz, nnz)
+        count("mcl.fallbacks")
+        with span("mcl.fallback"):
+            sq = _stage1_squaring(tplan)
+            v1, valid1, nnz1 = inflate_device(sq.rows, sq.cols, sq.vals, sq.valid, m=n,
+                                              inflation=inflation, threshold=threshold)
+            out = markov_cluster_device_fused(
+                MergedCOO(sq.shape, sq.rows, sq.cols, v1, valid1, nnz1),
+                inflation=inflation, iters=iters - 1, prune_threshold=threshold)
     prep["p_pad"] = round_up_bucket(prep["p_pad"] * 2, min_size=4096)
     prep["nnz_pad"] = round_up_bucket(max(prep["nnz_pad"] * 2, int(out.nnz)), min_size=1024)
     prep["elem_pad"] = round_up_bucket(prep.get("elem_pad", prep["nnz_pad"]) * 2, min_size=4096)

@@ -33,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from outerspace_tpu_torch.perf.timer import span
 from outerspace_tpu_torch.runtime.build import CudaKernel, device_args, tensor_ptr
 from outerspace_tpu_torch.sched.planner import TILE_B, OuterProductSchedule
 
@@ -217,19 +218,21 @@ def stage_group(tables, b_cols_blk: np.ndarray, b_vals_blk: np.ndarray, device) 
     """Join host class tables (``[(tile_a, {"tasks", "a_rows_t",
     "a_vals_t"})]``, as :func:`schedule_to_host` gives them, in stream
     order) and their B blocks into one :class:`TileGroup` on ``device``:
-    four host-to-device copies for the whole part."""
+    four host-to-device copies for the whole part (a ``spgemm.stage``
+    span)."""
     desc = group_descriptor([(ta, h["tasks"].shape[0] // 4) for ta, h in tables])
 
     def join(key, dtype):
         x = np.concatenate([np.asarray(h[key], dtype).reshape(-1) for _, h in tables])
         return torch.from_numpy(x).to(device)
 
-    return TileGroup(
-        desc, join("tasks", np.int32), join("a_rows_t", np.int32),
-        join("a_vals_t", np.float32),
-        torch.from_numpy(np.asarray(b_cols_blk, np.int32)).to(device),
-        torch.from_numpy(np.asarray(b_vals_blk, np.float32)).to(device),
-    )
+    with span("spgemm.stage"):
+        return TileGroup(
+            desc, join("tasks", np.int32), join("a_rows_t", np.int32),
+            join("a_vals_t", np.float32),
+            torch.from_numpy(np.asarray(b_cols_blk, np.int32)).to(device),
+            torch.from_numpy(np.asarray(b_vals_blk, np.float32)).to(device),
+        )
 
 
 def _check_outs(g: TileGroup, outs, dtypes) -> None:

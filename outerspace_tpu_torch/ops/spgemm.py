@@ -23,6 +23,12 @@ runs in int64 and narrows at the end.
 
 A merged result goes to the host compacted on the device
 (``MergedCOO.to_csr``): only its nnz entries and ``indptr`` are copied.
+
+Spans (``perf.timer.span``, recorded only under the profiler): a call
+of :func:`spgemm` is a ``spgemm`` root with ``spgemm.pick``,
+``spgemm.plan`` (``spgemm.stage`` inside, the plan's copies to the
+card) and ``fetch``; the phases ``expand``, ``sort`` and ``merge`` sit
+in the helpers here, which the MCL chain shares.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from outerspace_tpu_torch.ops.symbolic import (
     expansion_plan,
     expansion_plan_subset,
 )
+from outerspace_tpu_torch.perf.timer import span
 from outerspace_tpu_torch.sched.planner import ClassPlan, plan_outer_classes
 
 I32_MAX = 2**31 - 1
@@ -131,16 +138,17 @@ def plan_to_device(plan: ExpansionPlan, device) -> dict:
     def put(x, dtype):
         return torch.from_numpy(np.asarray(x, dtype=dtype)).to(device)
 
-    return dict(
-        a_rows=put(plan.a_rows, np.int32),
-        a_vals=put(plan.a_vals, np.float32),
-        a_k=put(plan.a_k, np.int32),
-        b_indptr=put(plan.b_indptr, np.int32),
-        b_cols=put(plan.b_cols, np.int32),
-        b_vals=put(plan.b_vals, np.float32),
-        offsets=put(plan.offsets, np.int32),
-        p_total=plan.expansion_size,
-    )
+    with span("spgemm.stage"):
+        return dict(
+            a_rows=put(plan.a_rows, np.int32),
+            a_vals=put(plan.a_vals, np.float32),
+            a_k=put(plan.a_k, np.int32),
+            b_indptr=put(plan.b_indptr, np.int32),
+            b_cols=put(plan.b_cols, np.int32),
+            b_vals=put(plan.b_vals, np.float32),
+            offsets=put(plan.offsets, np.int32),
+            p_total=plan.expansion_size,
+        )
 
 
 # --------------------------------------------------------------------------
@@ -151,9 +159,10 @@ def plan_to_device(plan: ExpansionPlan, device) -> dict:
 def merge_epilogue(key, vals, n_cols: int, sentinel_row: int, pad_count: int = 0):
     """Everything after the sort (K2): segmented sums, unpack, validity
     and nnz over an ALREADY-SORTED biased-key stream."""
-    return merge_epilogue_scan(
-        key, vals, pad_count, n_cols=n_cols, sentinel_row=sentinel_row
-    )
+    with span("merge"):
+        return merge_epilogue_scan(
+            key, vals, pad_count, n_cols=n_cols, sentinel_row=sentinel_row
+        )
 
 
 def merge_biased_keys(key, vals, n_cols: int, sentinel_row: int, pad_count: int = 0):
@@ -164,8 +173,10 @@ def merge_biased_keys(key, vals, n_cols: int, sentinel_row: int, pad_count: int 
     m·n = 2³² the real corner shares that bit pattern and is recovered
     exactly through ``pad_count`` (see ``ops.kernels.scan``). The sort is
     not stable: that only permutes the summands of a run."""
-    key, order = torch.sort(key)
-    return merge_epilogue(key, vals[order], n_cols, sentinel_row, pad_count)
+    with span("sort"):
+        key, order = torch.sort(key)
+        vals = vals[order]
+    return merge_epilogue(key, vals, n_cols, sentinel_row, pad_count)
 
 
 def merge_twokey(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, sentinel_row: int):
@@ -176,26 +187,28 @@ def merge_twokey(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, sen
     The JAX package sums runs with a shift/add scan whose pass count
     ``max_run`` bounds; here each run's total comes from one
     ``index_add_`` (the sums' order differs, within rounding)."""
-    key, order = torch.sort(rows.long() * 2**32 + cols.long())
-    vals = vals[order]
-    n = key.shape[0]
-    change = key[1:] != key[:-1]
-    first = torch.ones(n, dtype=torch.bool, device=key.device)
-    first[1:] = change
-    is_last = torch.ones(n, dtype=torch.bool, device=key.device)
-    is_last[:-1] = change
-    run = torch.cumsum(first, 0) - 1
-    sums = torch.zeros(n, dtype=torch.float32, device=key.device)
-    sums.index_add_(0, run, vals)
-    rows_s = (key >> 32).to(torch.int32)
-    valid = is_last & (rows_s < sentinel_row)
-    return (
-        torch.where(valid, rows_s, sentinel_row),
-        torch.where(valid, (key & 0xFFFFFFFF).to(torch.int32), 0),
-        torch.where(valid, sums[run], 0.0),
-        valid,
-        valid.sum(dtype=torch.int32),
-    )
+    with span("sort"):
+        key, order = torch.sort(rows.long() * 2**32 + cols.long())
+        vals = vals[order]
+    with span("merge"):
+        n = key.shape[0]
+        change = key[1:] != key[:-1]
+        first = torch.ones(n, dtype=torch.bool, device=key.device)
+        first[1:] = change
+        is_last = torch.ones(n, dtype=torch.bool, device=key.device)
+        is_last[:-1] = change
+        run = torch.cumsum(first, 0) - 1
+        sums = torch.zeros(n, dtype=torch.float32, device=key.device)
+        sums.index_add_(0, run, vals)
+        rows_s = (key >> 32).to(torch.int32)
+        valid = is_last & (rows_s < sentinel_row)
+        return (
+            torch.where(valid, rows_s, sentinel_row),
+            torch.where(valid, (key & 0xFFFFFFFF).to(torch.int32), 0),
+            torch.where(valid, sums[run], 0.0),
+            valid,
+            valid.sum(dtype=torch.int32),
+        )
 
 
 @dataclasses.dataclass
@@ -215,21 +228,23 @@ class MergedCOO:
         sorted and compaction keeps its order), nnz read once, and only
         the nnz columns and values and ``indptr`` copied to the host,
         from a CUDA device into pinned buffers (pageable memory took
-        4-8x longer on the H100's host; ``PERF.md`` §6)."""
+        4-8x longer on the H100's host; ``PERF.md`` §6). A ``fetch``
+        span."""
         from outerspace_tpu_torch.ops.chain import compact_to_csr_device
 
-        _, cols, vals, indptr, _ = compact_to_csr_device(
-            self.rows, self.cols, self.vals, self.valid,
-            nnz_pad=int(self.nnz), m=self.shape[0],
-        )
-        parts = (indptr, cols, vals)
-        if cols.is_cuda:
-            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in parts]
-            for h, t in zip(host, parts):
-                h.copy_(t, non_blocking=True)
-            torch.cuda.current_stream(cols.device).synchronize()
-            parts = host
-        return CSR(self.shape, *(t.numpy() for t in parts))
+        with span("fetch"):
+            _, cols, vals, indptr, _ = compact_to_csr_device(
+                self.rows, self.cols, self.vals, self.valid,
+                nnz_pad=int(self.nnz), m=self.shape[0],
+            )
+            parts = (indptr, cols, vals)
+            if cols.is_cuda:
+                host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in parts]
+                for h, t in zip(host, parts):
+                    h.copy_(t, non_blocking=True)
+                torch.cuda.current_stream(cols.device).synchronize()
+                parts = host
+            return CSR(self.shape, *(t.numpy() for t in parts))
 
 
 # --------------------------------------------------------------------------
@@ -246,11 +261,13 @@ def _spgemm_device(
     merge. Returns (rows, cols, vals, valid, nnz)."""
     args = (a_rows, a_vals, a_k, b_indptr, b_cols, b_vals, offsets, p_total)
     if packed:
-        key, v = _expand_light_packed(
-            *args, p_pad=p_pad, sentinel_row=sentinel_row, n_cols=n_cols
-        )
+        with span("expand"):
+            key, v = _expand_light_packed(
+                *args, p_pad=p_pad, sentinel_row=sentinel_row, n_cols=n_cols
+            )
         return merge_biased_keys(key, v, n_cols, sentinel_row, p_pad - p_total)
-    r, c, v = expand_partial_products(*args, p_pad, sentinel_row)
+    with span("expand"):
+        r, c, v = expand_partial_products(*args, p_pad, sentinel_row)
     return merge_twokey(r, c, v, sentinel_row)
 
 
@@ -463,26 +480,27 @@ def tiled_expand_packed(
     length = total if merge_pad is None else merge_pad
     if length < total:
         raise ValueError(f"merge_pad={merge_pad} < part stream {total}")
-    keys = torch.empty(length, dtype=torch.int32, device=tplan.device)
-    vals = torch.empty(length, dtype=torch.float32, device=tplan.device)
-    pos = 0
-    if tplan.group is not None:
-        pos = tplan.group.slots
-        expand_part_packed(tplan.group, n_cols=tplan.n, out_keys=keys[:pos], out_vals=vals[:pos])
-    if tplan.gather_ngroups:
-        end = pos + tplan.gather_p_out
-        _expand_residue_gather(tplan, out=(keys[pos:end], vals[pos:end]))
-        pos = end
-    if tplan.light_plan is not None:
-        k, v = _expand_light_packed(
-            **tplan.device_args["light"],
-            p_pad=tplan.light_pad, sentinel_row=tplan.m, n_cols=tplan.n,
-        )
-        keys[pos:pos + tplan.light_pad].copy_(k)
-        vals[pos:pos + tplan.light_pad].copy_(v)
-        pos += tplan.light_pad
-    keys[pos:].fill_(I32_MAX)
-    vals[pos:].zero_()
+    with span("expand"):
+        keys = torch.empty(length, dtype=torch.int32, device=tplan.device)
+        vals = torch.empty(length, dtype=torch.float32, device=tplan.device)
+        pos = 0
+        if tplan.group is not None:
+            pos = tplan.group.slots
+            expand_part_packed(tplan.group, n_cols=tplan.n, out_keys=keys[:pos], out_vals=vals[:pos])
+        if tplan.gather_ngroups:
+            end = pos + tplan.gather_p_out
+            _expand_residue_gather(tplan, out=(keys[pos:end], vals[pos:end]))
+            pos = end
+        if tplan.light_plan is not None:
+            k, v = _expand_light_packed(
+                **tplan.device_args["light"],
+                p_pad=tplan.light_pad, sentinel_row=tplan.m, n_cols=tplan.n,
+            )
+            keys[pos:pos + tplan.light_pad].copy_(k)
+            vals[pos:pos + tplan.light_pad].copy_(v)
+            pos += tplan.light_pad
+        keys[pos:].fill_(I32_MAX)
+        vals[pos:].zero_()
     return keys, vals, tiled_pad_count(tplan) + length - total
 
 
@@ -534,34 +552,35 @@ def spgemm_padded_tiled(
         return MergedCOO((tplan.m, tplan.n), r, c, v, valid, nnz)
     # the coordinate stream, in place: K4 over the classes, then the
     # residue (K1's keys unpacked, or the flat expand)
-    total = tplan.padded_total
-    rows = torch.empty(total, dtype=torch.int32, device=tplan.device)
-    cols = torch.empty(total, dtype=torch.int32, device=tplan.device)
-    vals = torch.empty(total, dtype=torch.float32, device=tplan.device)
-    pos = 0
-    if tplan.group is not None:
-        pos = tplan.group.slots
-        expand_part_coords(tplan.group, sentinel_row=sentinel,
-                           out_rows=rows[:pos], out_cols=cols[:pos], out_vals=vals[:pos])
-    if tplan.gather_ngroups:
-        # K1 emits packed keys; unpack them for the two-key merge (the
-        # gather residue exists only when m·n ≤ 2³²)
-        if tplan.m * tplan.n == 2**32:
-            raise ValueError(
-                "packed=False with a gather residue cannot recover the "
-                "(m-1, n-1) corner at m*n == 2^32; use the packed merge"
-            )
-        end = pos + tplan.gather_p_out
-        k, _ = _expand_residue_gather(tplan, out=(rows[pos:end], vals[pos:end]))
-        gr, gc = unpack_key_biased(k, tplan.n)
-        live = k != I32_MAX
-        cols[pos:end] = torch.where(live, gc, 0)
-        rows[pos:end] = torch.where(live, gr, sentinel)
-        pos = end
-    if tplan.light_plan is not None:
-        for out, x in zip((rows, cols, vals), expand_partial_products(
-                **tplan.device_args["light"], p_pad=tplan.light_pad, sentinel_row=sentinel)):
-            out[pos:].copy_(x)
+    with span("expand"):
+        total = tplan.padded_total
+        rows = torch.empty(total, dtype=torch.int32, device=tplan.device)
+        cols = torch.empty(total, dtype=torch.int32, device=tplan.device)
+        vals = torch.empty(total, dtype=torch.float32, device=tplan.device)
+        pos = 0
+        if tplan.group is not None:
+            pos = tplan.group.slots
+            expand_part_coords(tplan.group, sentinel_row=sentinel,
+                               out_rows=rows[:pos], out_cols=cols[:pos], out_vals=vals[:pos])
+        if tplan.gather_ngroups:
+            # K1 emits packed keys; unpack them for the two-key merge (the
+            # gather residue exists only when m·n ≤ 2³²)
+            if tplan.m * tplan.n == 2**32:
+                raise ValueError(
+                    "packed=False with a gather residue cannot recover the "
+                    "(m-1, n-1) corner at m*n == 2^32; use the packed merge"
+                )
+            end = pos + tplan.gather_p_out
+            k, _ = _expand_residue_gather(tplan, out=(rows[pos:end], vals[pos:end]))
+            gr, gc = unpack_key_biased(k, tplan.n)
+            live = k != I32_MAX
+            cols[pos:end] = torch.where(live, gc, 0)
+            rows[pos:end] = torch.where(live, gr, sentinel)
+            pos = end
+        if tplan.light_plan is not None:
+            for out, x in zip((rows, cols, vals), expand_partial_products(
+                    **tplan.device_args["light"], p_pad=tplan.light_pad, sentinel_row=sentinel)):
+                out[pos:].copy_(x)
     r, c, v, valid, nnz = merge_twokey(rows, cols, vals, sentinel)
     return MergedCOO((tplan.m, tplan.n), r, c, v, valid, nnz)
 
@@ -745,7 +764,8 @@ def spgemm_padded_tiled_parts(
     packed: bool | None = None,
 ) -> MergedCOO:
     """Run the (possibly row-partitioned, possibly rebased) tiled
-    pipeline; the parts' launches queue back to back."""
+    pipeline; the parts' launches queue back to back, then their merged
+    streams join into one (a ``merge`` span)."""
     if isinstance(plan, TiledPlan):
         return spgemm_padded_tiled(plan, packed=packed)
     # The common stream length is a packed-key feature; an explicit
@@ -753,21 +773,24 @@ def spgemm_padded_tiled_parts(
     # construction (each part's local key space fits).
     packed_eff = (plan.rebased or plan.m * plan.n <= 2**32) if packed is None else packed
     merge_pad = (plan.merge_pad or None) if packed_eff else None
-    rows_l, cols_l, vals_l, valid_l, nnz = [], [], [], [], 0
-    for lo, _, tp in plan.parts:
-        part = spgemm_padded_tiled(tp, packed=packed, merge_pad=merge_pad)
-        rows = part.rows
-        if plan.rebased:  # part-local rows (and sentinel) → global
-            rows = torch.where(part.valid, rows + lo, plan.m)
-        rows_l.append(rows)
-        cols_l.append(part.cols)
-        vals_l.append(part.vals)
-        valid_l.append(part.valid)
-        nnz = nnz + part.nnz
-    return MergedCOO(
-        (plan.m, plan.n),
-        torch.cat(rows_l), torch.cat(cols_l), torch.cat(vals_l), torch.cat(valid_l), nnz,
-    )
+    parts = [(lo, spgemm_padded_tiled(tp, packed=packed, merge_pad=merge_pad))
+             for lo, _, tp in plan.parts]
+    with span("merge"):
+        rows_l, cols_l, vals_l, valid_l, nnz = [], [], [], [], 0
+        while parts:  # each part's local rows go once rebased
+            lo, part = parts.pop(0)
+            rows = part.rows
+            if plan.rebased:  # part-local rows (and sentinel) → global
+                rows = torch.where(part.valid, rows + lo, plan.m)
+            rows_l.append(rows)
+            cols_l.append(part.cols)
+            vals_l.append(part.vals)
+            valid_l.append(part.valid)
+            nnz = nnz + part.nnz
+        return MergedCOO(
+            (plan.m, plan.n),
+            torch.cat(rows_l), torch.cat(cols_l), torch.cat(vals_l), torch.cat(valid_l), nnz,
+        )
 
 
 # --------------------------------------------------------------------------
@@ -798,7 +821,12 @@ def spgemm(
     "flat". ``config``: a ``outerspace_tpu_torch.config.Config`` whose
     ``waste_limit`` steers the tile planner (None: the cost model's
     pick). Work runs on ``device``; "cpu" runs each kernel's plain
-    version."""
+    version.
+
+    A ``spgemm`` span (attribute ``strategy``, the one run) holds
+    ``spgemm.plan`` (the symbolic plan, then the strategy's host plan
+    with its ``spgemm.stage`` copies), ``spgemm.pick`` for "auto", the
+    phases and ``fetch``."""
     from outerspace_tpu_torch.config import DEFAULT
 
     if strategy not in ("auto", "gather", "tiles", "flat"):
@@ -806,28 +834,33 @@ def spgemm(
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"inner dimensions differ: {a.shape} @ {b.shape}")
     cfg = config if config is not None else DEFAULT
-    a_csc = a if isinstance(a, CSC) else a.to_csc()
-    b_csr = b if isinstance(b, CSR) else b.to_csr()
-    plan = expansion_plan(a_csc, b_csr)
-    if plan.expansion_size == 0:
-        return empty_csr(plan.m, plan.n)
-    if strategy == "auto":
-        from outerspace_tpu_torch.sched.planner import choose_strategy
+    with span("spgemm") as call:
+        a_csc = a if isinstance(a, CSC) else a.to_csc()
+        b_csr = b if isinstance(b, CSR) else b.to_csr()
+        with span("spgemm.plan"):
+            plan = expansion_plan(a_csc, b_csr)
+        if plan.expansion_size == 0:
+            return empty_csr(plan.m, plan.n)
+        if strategy == "auto":
+            from outerspace_tpu_torch.sched.planner import choose_strategy
 
-        strategy = "flat" if p_pad is not None else choose_strategy(a_csc, b_csr)
-    if strategy in ("tiles", "gather") and p_pad is not None:
-        raise ValueError(
-            "p_pad is only honored by the flat strategy; tile/gather "
-            "padding is structural (use strategy='flat' or drop p_pad)"
-        )
-    if strategy == "tiles":
-        tplan = plan_tiled_parts(a_csc, b_csr, waste_limit=cfg.waste_limit, device=device)
-        return spgemm_padded_tiled_parts(tplan, packed=packed).to_csr()
-    if strategy == "gather":
-        from outerspace_tpu_torch.ops.gather_pipeline import spgemm_gather
+            with span("spgemm.pick"):
+                strategy = "flat" if p_pad is not None else choose_strategy(a_csc, b_csr)
+        call.set(strategy=strategy)
+        if strategy in ("tiles", "gather") and p_pad is not None:
+            raise ValueError(
+                "p_pad is only honored by the flat strategy; tile/gather "
+                "padding is structural (use strategy='flat' or drop p_pad)"
+            )
+        if strategy == "tiles":
+            with span("spgemm.plan"):
+                tplan = plan_tiled_parts(a_csc, b_csr, waste_limit=cfg.waste_limit, device=device)
+            return spgemm_padded_tiled_parts(tplan, packed=packed).to_csr()
+        if strategy == "gather":
+            from outerspace_tpu_torch.ops.gather_pipeline import spgemm_gather
 
-        return spgemm_gather(a_csc, b_csr, device=device)
-    return spgemm_padded(plan, p_pad, packed=packed, device=device).to_csr()
+            return spgemm_gather(a_csc, b_csr, device=device)
+        return spgemm_padded(plan, p_pad, packed=packed, device=device).to_csr()
 
 
 def spgemm_coo(a, b, p_pad: int | None = None, device: str | torch.device = "cuda") -> COO:

@@ -1,9 +1,9 @@
 """Performance models and instrumentation: the card's roofline
 (``perf/roofline.py``), the event model of the card's machine
 (``perf/perfsim.py`` over ``csrc/perfsim.cpp``; ``perf/simcal.py``
-measures its fields on the card), scope timers and device-synchronised
-timing (``perf/timer.py``), and primitive micro-benchmarks
-(``perf/microbench.py``)."""
+measures its fields on the card), the program's spans and counters and
+device-synchronised timing (``perf/timer.py``, imported on its own), and
+primitive micro-benchmarks (``perf/microbench.py``)."""
 
 from outerspace_tpu_torch.perf.perfsim import (  # noqa: F401
     CARD_CONFIG,
@@ -21,4 +21,3 @@ from outerspace_tpu_torch.perf.roofline import (  # noqa: F401
     predict_multiply_time,
     predict_spgemm_time,
 )
-from outerspace_tpu_torch.perf.timer import Timer, timed  # noqa: F401

@@ -1,7 +1,7 @@
 """The port's perf modules on the CPU: the roofline's properties (as
 ``tests/test_perf.py`` checks the JAX package's) and its byte counts
-against the tensors the port's pipeline allocates for a small plan; the
-timers; the microbench suite at a small size."""
+against the tensors the port's pipeline allocates for a small plan; device-synchronised
+timing and the profiler's trace; the microbench suite at a small size."""
 
 import contextlib
 import io
@@ -31,7 +31,7 @@ from outerspace_tpu_torch.perf.roofline import (
     predict_sort_time,
     predict_spgemm_time,
 )
-from outerspace_tpu_torch.perf.timer import Timer, device_sync, profiler_trace, time_device, timed
+from outerspace_tpu_torch.perf.timer import device_sync, profiler_trace, time_device
 
 
 def test_monotone_in_size():
@@ -133,19 +133,6 @@ def test_byte_counts_equal_the_pipeline_tensors(seed):
     epilogue = skey.nbytes + sval.nbytes + sum(t.nbytes for t in out)
     assert roofline.merge_bytes(p_pad) == sort + epilogue
     assert int(out[4]) > 0 and int((skey == I32_MAX).sum()) >= p_pad - plan.expansion_size
-
-
-def test_timer_and_timed(capsys):
-    with Timer("x", quiet=True) as t:
-        time.sleep(0.01)
-    assert t.elapsed >= 0.01
-
-    @timed("cap")
-    def f():
-        return 7
-
-    assert f() == 7
-    assert "[cap]" in capsys.readouterr().err
 
 
 def test_time_device_on_the_cpu():
