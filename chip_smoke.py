@@ -28,6 +28,11 @@ checking every result exactly against scipy:
   K1 / K2, then K2 once plus twice per loop iteration) and host reads
   (at most 2) counted; K2 held to its plain version on the loop's
   streams;
+- the prune and compaction after the MCL chain's first squaring at the
+  shape of the benchmark's rmat15_ef16.mcl4 cell (its graph from the
+  benchmark's generator): the merged stream's slots, valid slots and
+  survivors, the kernel bit-equal to its plain version, its time beside
+  its bound (5 B a slot) and the plain version's;
 - sparse-NN inference: ``SparseMLP`` (MLP1w 784-1000-1000-10, pruned to
   1%) at batch 1024 and ``SparseLeNet`` (pruned LeNet) at batch 256, with
   the committed trained weights, each serving four requests through K5
@@ -257,7 +262,9 @@ def _split_ms(torch, plan_fn, run_fn, samples: int = 3, fetch=lambda merged: mer
 # K2 is its tile pass and its carry pass
 _FAMILIES = (("K1", "::gexpand_kernel"), ("K2", "::scan_tile_kernel"),
              ("K2 carry", "::scan_carry_kernel"), ("K3", "::expand_kernel<true>"),
-             ("K4", "::expand_kernel<false>"), ("K5", "::spmm_kernel"))
+             ("K4", "::expand_kernel<false>"), ("K5", "::spmm_kernel"),
+             ("prune_compact", "::prune_compact_kernel"),
+             ("prune_compact tail", "::prune_compact_tail"))
 
 
 def _profile(torch, fn):
@@ -619,7 +626,8 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     counts = {name: k.launches for name, k in kernels.items()}
     syncs = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
     stage1 = _stage1_launches(prep["tplan"])
-    want_counts = dict(stage1, K2=stage1["K2"] + 1 + 2 * (MCL_ITERS - 1), K4=0, K5=0)
+    want_counts = dict(stage1, K2=stage1["K2"] + 1 + 2 * (MCL_ITERS - 1), K4=0, K5=0,
+                       prune_compact=1)
     if counts != want_counts:
         raise RuntimeError(f"warm mcl_run launches {counts}, want {want_counts}")
     if len(syncs) > 2:
@@ -638,9 +646,9 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
         raise RuntimeError("a new prep did not take its budgets from the sizing cache")
     print(f"mcl_rmat14_4iter warm mcl_run: final nnz {got.nnz} == scipy, structure exact, values "
           f"within rtol {MCL_RTOL} atol {MCL_ATOL}, {len(want_clusters)} cluster sets equal; "
-          f"launches per run {counts} (the first squaring's {stage1}, then K2 once for its "
-          f"column sums and twice per loop iteration); host reads {len(syncs)} (`ok`; nnz is "
-          f"read by to_csr)")
+          f"launches per run {counts} (the first squaring's {stage1}, then prune_compact once "
+          f"and K2 once for its column sums, K2 twice per loop iteration); host reads "
+          f"{len(syncs)} (`ok`; nnz is read by to_csr)")
     _phase("mcl main path", t0)
 
     # the exact fallbacks and the tiled first squaring
@@ -780,10 +788,114 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     # the profiler's trace of a warm run is taken after the other phases'
     # traces: after a trace this large, the next traces in the process
     # dropped device activity
-    return {"K1": counts["K1"], "K2": counts["K2"], "run": lambda: graph.mcl_run(prep),
+    return {"K1": counts["K1"], "K2": counts["K2"], "prune_compact": counts["prune_compact"],
+            "run": lambda: graph.mcl_run(prep),
             "K1 err": k1_mcl_err, "K3 err": k3_mcl_err, "K4 err": k4_mcl_err,
             "clusters": len(want_clusters), "graph": g, "want": want,
             "want_clusters": want_clusters, "warm_ms": med(warm_ms)}
+
+
+def _prune_compact_phase(torch, np, dev) -> dict:
+    """The prune and compaction after the MCL chain's first squaring
+    (``ops/kernels/compact.py``) at the shape of the benchmark's
+    rmat15_ef16.mcl4 cell: the configuration's flow (the benchmark's own
+    generator), ``mcl_prepare`` and ``mcl_size`` as the cell runs them,
+    and the first squaring's merged stream, whose slots, valid slots and
+    survivors it prints. The kernel's output, sorted as the chain sorts
+    it, is held bit for bit (``ok`` too) to its plain version's and to
+    the chain's compaction before the kernel; then each is timed
+    (device-only CUDA events; the kernel also with the host's launch and
+    by the profiler) beside the kernel's bound, 5 B a slot. Returns the
+    kernel's numbers for its row of the ``kernels`` line."""
+    from benchmark.reference import generators
+    from benchmark.reference import mcl as ref_mcl
+    from outerspace_tpu_torch.formats.csr import CSR
+    from outerspace_tpu_torch.ops import chain, graph
+    from outerspace_tpu_torch.ops.kernels import compact
+    from outerspace_tpu_torch.ops.spgemm import I32_MAX, pack_key_biased
+
+    t0 = time.perf_counter()
+    config = json.loads((ROOT / "benchmark" / "configs" / "rmat15_ef16.json").read_text())
+    inflation, threshold = 2.0, 1e-4
+    prep = graph.mcl_prepare(CSR(*ref_mcl.flow_of(generators.make(config))), inflation=inflation,
+                             iters=MCL_ITERS, prune_threshold=threshold, device=dev)
+    graph.mcl_size(prep)
+    sq = chain._stage1_squaring(prep["tplan"])
+    n, slots = prep["n"], sq.rows.shape[0]
+    # the budgets as mcl_whole_traced applies them
+    elem_pad = min(max(prep["elem_pad"], prep["nnz_pad"]), prep["p_pad"])
+    caps = prep.get("blk_caps")
+    cap = caps[0] if caps and caps[0] and slots >= 16 * elem_pad else 0
+    thr_root = chain._f32(threshold ** (1.0 / inflation))
+    args = (sq.rows, sq.cols, sq.vals, sq.valid)
+    kw = dict(thr_root=thr_root, m=n, elem_pad=elem_pad, cap=cap)
+    survivors = int((sq.valid & (sq.vals > thr_root)).sum())
+    print(f"rmat15_ef16 first squaring: {slots:,} merged slots, {int(sq.nnz):,} valid, "
+          f"{survivors:,} survive the prune (v > {thr_root!r}); elem_pad {elem_pad:,}, cap {cap}")
+
+    def before():
+        """The chain's compaction before the kernel, as mcl_whole_traced
+        ran it: the prune and the keys over every slot, then the blocked
+        compaction with a cap, else a compaction in stream order, and a
+        sort."""
+        v_raw = torch.where(sq.valid, torch.clamp(sq.vals, min=0.0), 0.0)
+        survive = sq.valid & (v_raw > thr_root)
+        kcsc = torch.where(survive, pack_key_biased(sq.cols, sq.rows, n), I32_MAX)
+        ok = survive.sum() <= elem_pad
+        if cap:
+            kp, vp, ok_cap = chain.compact_masked_stream(kcsc, v_raw, elem_pad, cap=cap)
+            return kp, vp, ok & ok_cap
+        return (*chain._sort_pair(*chain._to_front(survive, elem_pad, (kcsc, I32_MAX),
+                                                   (v_raw, 0.0))), ok)
+
+    def sort(out):
+        return (*chain._sort_pair(out[0], out[1]), out[2])
+
+    before_launches = compact.KERNEL.launches
+    got = sort(compact.prune_compact(*args, **kw))
+    plain = sort(compact.prune_compact_plain(*args, **kw))
+    old = before()
+    torch.cuda.synchronize()
+    if compact.KERNEL.launches != before_launches + 1:
+        raise RuntimeError("prune_compact: the kernel was not launched once")
+    if not (bool(got[2]) and bool(plain[2]) and bool(old[2])):
+        raise RuntimeError(f"prune_compact: ok {bool(got[2])}, plain {bool(plain[2])}, before "
+                           f"{bool(old[2])}: the cell's budgets do not hold")
+    err = 0.0
+    for label, want in (("its plain version", plain), ("the chain before it", old)):
+        if not torch.equal(got[0], want[0]):
+            raise RuntimeError(f"prune_compact: the kernel's keys differ from {label}'s")
+        err = max(err, float((got[1] - want[1]).abs().max()))
+        if not torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)):
+            raise RuntimeError(f"prune_compact: the kernel's values differ from {label}'s "
+                               f"(max |err| {err:.3e})")
+    if int((got[0] != I32_MAX).sum()) != survivors:
+        raise RuntimeError("prune_compact: the survivors were not all kept")
+    del got, plain, old
+    _phase("prune_compact check", t0)
+
+    t0 = time.perf_counter()
+    spin = _spin_cycles(torch, 100.0)
+    kernel = lambda: compact.prune_compact(*args, **kw)  # noqa: E731
+    ms = _device_ms(torch, kernel, spin)
+    host_ms = _median_ms(torch, kernel)
+    sorted_ms = _device_ms(torch, lambda: sort(kernel()), spin)
+    # the plain version reads its survivors' count on the host: events with its host's time
+    plain_ms = _median_ms(torch, lambda: compact.prune_compact_plain(*args, **kw), reps=3,
+                          warmup=1)
+    before_ms = _device_ms(torch, before, spin, reps=3)
+    prof = _profile_line(torch, "prune_compact kernel, rmat15_ef16 first squaring", kernel)
+    bound, by = _bound(slots * 5, 0)
+    dev_ms = prof.get("prune_compact", 0.0) + prof.get("prune_compact tail", 0.0)
+    print(f"prune_compact on rmat15_ef16's first squaring: {ms:.4f} ms device-only events, "
+          f"{host_ms:.4f} ms with the host's launch, {dev_ms:.4f} ms profiler (main pass "
+          f"{prof.get('prune_compact', 0.0):.4f}, tail {prof.get('prune_compact tail', 0.0):.4f}); "
+          f"{100 * bound / ms:.1f}% of its {bound:.4f} ms bound ({slots:,} slots x 5 B at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); with the sort of the elem_pad slots "
+          f"{sorted_ms:.4f} ms; the plain version {plain_ms:.4f} ms (with its host read); the "
+          f"chain's compaction before the kernel {before_ms:.4f} ms; max |err| {err}")
+    _phase("prune_compact timing", t0)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound, "by": by}
 
 
 def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want: int,
@@ -948,7 +1060,8 @@ def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want
               f"launches {counts}")
     g14 = str(out_dir / "mcl_rmat14.mtx")
     write_mtx(g14, rmat(14, edge_factor=8, seed=7))
-    text, counts = run_cli(["graph", "mcl", g14, "--iters", str(MCL_ITERS)], ("K1", "K2"))
+    text, counts = run_cli(["graph", "mcl", g14, "--iters", str(MCL_ITERS)],
+                           ("K1", "K2", "prune_compact"))
     got = int(field(text, r"mcl: (\d+) clusters"))
     if got != mcl_clusters_want:
         raise RuntimeError(f"cli graph mcl: {got} clusters, scipy's MCL {mcl_clusters_want}")
@@ -1921,6 +2034,7 @@ def main() -> int:
 
     # ---- Markov clustering: mcl_rmat14_4iter, K1 and K2 on its path
     mcl_launches = _mcl_phase(torch, np, dev, kernels, _spin_cycles(torch))
+    pc = _prune_compact_phase(torch, np, dev)
 
     # ---- sparse-NN inference: the trained weights, four requests per model
     t0 = time.perf_counter()
@@ -2461,7 +2575,7 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 "library_ms": library_ms}
 
-    for k in ("K1", "K2"):  # the MCL path's warm run launches them too
+    for k in ("K1", "K2", "prune_compact"):  # the MCL path's warm run launches them too
         launches[k] += mcl_launches[k]
     k1_err, k3_err = max(k1_err, mcl_launches["K1 err"]), max(k3_err, mcl_launches["K3 err"])
     k1_err, k3_err = max(k1_err, sharded["K1 err"]), max(k3_err, sharded["K3 err"])
@@ -2485,6 +2599,9 @@ def main() -> int:
         row("K5 spmm_blockell_device (block-ELL SpMM)", "cuda",
             "outerspace_tpu_torch/csrc/spmm.cu", "outerspace_tpu/ops/pallas/spmm_kernel.py:30",
             "K5", k5_err, k5_ms, k5_plain_ms, k5_bound, k5_by, k5_lib_ms),
+        row("prune_compact (the MCL first squaring's prune and compaction)", "cuda",
+            "outerspace_tpu_torch/csrc/prune_compact.cu", None,
+            "prune_compact", pc["err"], pc["ms"], pc["plain_ms"], pc["bound"], pc["by"], None),
     ]}
     print(json.dumps(record))
     print(_card_line())

@@ -27,10 +27,12 @@ K2's corner rule off without reading P on the host.
 The JAX package computes all of this with XLA sorts, scans, gathers and
 scatters, outside any Pallas kernel, so it is plain PyTorch here; its
 products run K1 / K3 (the first squaring) and K2 (every merge, and the
-per-column sums of the column normalisation with ``n_cols=1``). Where the
-JAX code works in uint32, the port carries the values in int64, which is
-exact below 2³²; the keys that come out are bit-equal to the JAX
-package's.
+per-column sums of the column normalisation with ``n_cols=1``). On the
+card the prune and compaction after the staged chain's first squaring is
+one kernel of its own (``ops/kernels/compact.py``), since that step
+streams the largest stream of the run. Where the JAX code works in
+uint32, the port carries the values in int64, which is exact below 2³²;
+the keys that come out are bit-equal to the JAX package's.
 
 Spans (``perf.timer.span``, recorded only under the profiler): the
 staged chain's stages ``mcl.square1``, ``mcl.iteration`` and
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 
 from outerspace_tpu_torch.ops.gather_pipeline import GatherPipelinePlan, spgemm_gather_padded
+from outerspace_tpu_torch.ops.kernels.compact import CAP_BLOCK, prune_compact
 from outerspace_tpu_torch.ops.spgemm import (
     I32_MAX,
     KEY_BIAS,
@@ -61,9 +64,6 @@ from outerspace_tpu_torch.ops.symbolic import round_up_bucket
 from outerspace_tpu_torch.perf.timer import span
 
 _U32 = 2**32
-# the survivor caps of the JAX package's blocked compaction are per block
-# of this many slots of a merged stream
-CAP_BLOCK = 8192
 # the fused chain's product budget: the first squaring's P times this
 P_HEADROOM = 1.5
 
@@ -576,20 +576,14 @@ def mcl_whole_traced(tplan, *, p_pad: int, nnz_pad: int, m: int, n_cols: int, it
     with span("mcl.square1"):
         sq = _stage1_squaring(tplan)
     with span("compact", device=sq.rows.device):
-        L = sq.rows.shape[0]
         # prune on the raw merged values (v^p > t ⟺ v > t^(1/p) for v ≥ 0,
         # p > 0), so the power runs after the compaction on survivors only
         thr_root = _f32(float(threshold) ** (1.0 / float(inflation)))
-        v_raw = torch.where(sq.valid, torch.clamp(sq.vals, min=0.0), 0.0)
-        survive = sq.valid & (v_raw > thr_root)
-        kcsc = torch.where(survive, pack_key_biased(sq.cols, sq.rows, m), I32_MAX)
-        ok = survive.sum() <= elem_pad
         cap1 = blk_caps[0] if blk_caps else 0
-        if cap1 and L >= 16 * elem_pad:
-            kp, vp, ok_cap = compact_masked_stream(kcsc, v_raw, elem_pad, cap=cap1)
-            ok = ok & ok_cap
-        else:
-            kp, vp = _sort_pair(*_to_front(survive, elem_pad, (kcsc, I32_MAX), (v_raw, 0.0)))
+        kp, vp, ok = prune_compact(
+            sq.rows, sq.cols, sq.vals, sq.valid, thr_root=thr_root, m=m, elem_pad=elem_pad,
+            cap=cap1 if cap1 and sq.rows.shape[0] >= 16 * elem_pad else 0)
+        kp, vp = _sort_pair(kp, vp)
         valid1 = kp != I32_MAX
         vp = torch.where(valid1, torch.pow(torch.clamp(vp, min=0.0), inflation), 0.0)
         starts1 = _column_starts(kp, m)

@@ -1,0 +1,110 @@
+"""The prune and compaction after the MCL chain's first squaring: the CUDA
+kernel's wrapper and its plain PyTorch version.
+
+Replaces no Pallas kernel: the JAX package prunes and compacts the first
+squaring's merged stream with XLA ops in its ``mcl_whole_traced`` (the
+prune, then ``compact_masked_stream`` or ``_to_front`` and a sort). A
+slot survives iff it is valid and max(v, 0) > ``thr_root``; each
+survivor becomes the biased CSC key ``col·m + row − 2³¹`` with the value
+max(v, 0), in the first of ``elem_pad`` slots, the rest (INT32_MAX, 0).
+The survivors come in no set order: the caller sorts the ``elem_pad``
+slots, and since K2 merged the stream their keys are unique, so the
+sorted result does not depend on it. ``ok``: the survivors fit
+``elem_pad`` and, with a ``cap``, no ``CAP_BLOCK``-slot block of the
+stream holds more than ``cap`` of them (the JAX package's blocked
+compaction is exact only under that bound). The kernel source is
+``csrc/prune_compact.cu``: it reads 5 bytes a slot (value and valid) and
+the survivors' rows and columns.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from outerspace_tpu_torch.runtime.build import CudaKernel, device_args, tensor_ptr
+
+_I32_MAX = 2**31 - 1
+# the survivor caps of the JAX package's blocked compaction are per block
+# of this many slots of a merged stream; the kernel's tile is one block
+CAP_BLOCK = 8192
+
+KERNEL = CudaKernel(
+    "prune_compact",
+    "prune_compact_launch",
+    [ctypes.c_void_p] * 4
+    + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p] * 4
+    + [ctypes.c_int, ctypes.c_void_p],
+)
+
+
+def _check(rows, cols, vals, valid, m: int, elem_pad: int, cap: int):
+    if rows.dtype != torch.int32 or cols.dtype != torch.int32:
+        raise TypeError(f"want int32 rows and cols, got {rows.dtype}, {cols.dtype}")
+    if vals.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"want float32 vals and bool valid, got {vals.dtype}, {valid.dtype}")
+    streams = (rows, cols, vals, valid)
+    if any(s.dim() != 1 or s.shape != rows.shape for s in streams):
+        raise ValueError(f"want equal 1-D streams, got {[tuple(s.shape) for s in streams]}")
+    if not all(s.is_contiguous() for s in streams):
+        raise ValueError("streams must be contiguous")
+    if any(s.device != rows.device for s in streams):
+        raise ValueError(f"streams on {[str(s.device) for s in streams]}")
+    if rows.shape[0] >= 2**31:
+        raise ValueError(f"a stream of {rows.shape[0]} slots exceeds the int32 index space")
+    if not 0 < m < 2**31 or not 0 <= elem_pad < 2**31 or not 0 <= cap < 2**31:
+        raise ValueError(f"m {m} / elem_pad {elem_pad} / cap {cap} out of int32 range")
+
+
+def prune_compact(rows, cols, vals, valid, *, thr_root: float, m: int, elem_pad: int, cap: int):
+    """The first squaring's merged stream (int32 rows and cols, float32
+    vals, bool valid; K2's output) pruned and compacted into ``elem_pad``
+    slots. Returns (kp int32[elem_pad], vp float32[elem_pad], ok 0-d
+    bool): the survivors first, unsorted, then (INT32_MAX, 0). Where
+    ``ok`` is false the caller falls back and ``kp``, ``vp`` are not
+    used. ``cap`` 0 checks no per-block bound.
+
+    CPU tensors run :func:`prune_compact_plain`; CUDA tensors launch
+    ``csrc/prune_compact.cu`` once, and need ``vals`` 16-byte and
+    ``valid`` 4-byte aligned (the kernel's vector loads)."""
+    _check(rows, cols, vals, valid, m, elem_pad, cap)
+    dev = rows.device
+    if dev.type == "cpu":
+        return prune_compact_plain(rows, cols, vals, valid, thr_root=thr_root, m=m,
+                                   elem_pad=elem_pad, cap=cap)
+    if dev.type != "cuda":
+        raise ValueError(f"the prune_compact kernel runs on cuda, not {dev}")
+    if vals.data_ptr() % 16 or valid.data_ptr() % 4:
+        raise ValueError("vals must start 16-byte and valid 4-byte aligned (the kernel's "
+                         "vector loads)")
+    kp = torch.empty(elem_pad, dtype=torch.int32, device=dev)
+    vp = torch.empty(elem_pad, dtype=torch.float32, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    KERNEL.launch(
+        tensor_ptr(rows), tensor_ptr(cols), tensor_ptr(vals), tensor_ptr(valid),
+        rows.shape[0], float(thr_root), m, elem_pad, cap,
+        tensor_ptr(kp), tensor_ptr(vp), tensor_ptr(ok), tensor_ptr(counts),
+        *device_args(dev),
+    )
+    return kp, vp, ok
+
+
+def prune_compact_plain(rows, cols, vals, valid, *, thr_root: float, m: int, elem_pad: int,
+                        cap: int):
+    """The same function in plain PyTorch, on any device: the survivors
+    in stream order (the first ``elem_pad`` of them), keys in int64."""
+    v = torch.clamp(vals, min=0.0)
+    idx = torch.nonzero(valid & (v > thr_root)).squeeze(1)
+    ok = torch.tensor(idx.shape[0] <= elem_pad, device=rows.device)
+    if cap:
+        ok = ok & (torch.bincount(idx // CAP_BLOCK, minlength=1).max() <= cap)
+    take = idx[:elem_pad]
+    n = take.shape[0]
+    kp = torch.full((elem_pad,), _I32_MAX, dtype=torch.int32, device=rows.device)
+    vp = torch.zeros(elem_pad, dtype=torch.float32, device=rows.device)
+    kp[:n] = ((cols[take].long() * m + rows[take].long()) % 2**32 - 2**31).to(torch.int32)
+    vp[:n] = v[take]
+    return kp, vp, ok

@@ -8,10 +8,11 @@ import stat
 
 import pytest
 
-from outerspace_tpu_torch.ops.kernels import expand, gexpand, scan, spmm
+from outerspace_tpu_torch.ops.kernels import compact, expand, gexpand, scan, spmm
 from outerspace_tpu_torch.runtime import build
 
-KERNELS = (gexpand.KERNEL, scan.KERNEL, expand.KERNEL_PACKED, expand.KERNEL_COORDS, spmm.KERNEL)
+KERNELS = (gexpand.KERNEL, scan.KERNEL, expand.KERNEL_PACKED, expand.KERNEL_COORDS, spmm.KERNEL,
+           compact.KERNEL)
 
 
 def test_nvcc_flags_target_hopper_without_torch_headers():
