@@ -33,6 +33,12 @@ checking every result exactly against scipy:
   benchmark's generator): the merged stream's slots, valid slots and
   survivors, the kernel bit-equal to its plain version, its time beside
   its bound (5 B a slot) and the plain version's;
+- the 64-bit-key kernels (n² ≥ 2³²) at the shapes of the benchmark's
+  lfr19_k20_mu03.mcl4 cell: a warm ``mcl_run``'s launches (K2_64 once
+  a loop merge, prune_compact_64 once, the 32-bit prune_compact never);
+  prune_compact_64 on its first squaring's stream bit-equal to its plain
+  version and K2_64 on its largest loop merge equal to its plain
+  version, each timed beside its bound and the plain version's time;
 - sparse-NN inference: ``SparseMLP`` (MLP1w 784-1000-1000-10, pruned to
   1%) at batch 1024 and ``SparseLeNet`` (pruned LeNet) at batch 256, with
   the committed trained weights, each serving four requests through K5
@@ -260,7 +266,11 @@ def _split_ms(torch, plan_fn, run_fn, samples: int = 3, fetch=lambda merged: mer
 
 # kernel name fragments (as CUPTI reports the demangled names) by kernel;
 # K2 is its tile pass and its carry pass
-_FAMILIES = (("K1", "::gexpand_kernel"), ("K2", "::scan_tile_kernel"),
+# (the 64-bit instantiations first: their names extend the 32-bit ones')
+_FAMILIES = (("K2_64", "::scan_tile_kernel_wide"), ("K2_64 carry", "::scan_carry_kernel_wide"),
+             ("prune_compact_64", "::prune_compact_kernel_wide"),
+             ("prune_compact_64 tail", "::prune_compact_tail_wide"),
+             ("K1", "::gexpand_kernel"), ("K2", "::scan_tile_kernel"),
              ("K2 carry", "::scan_carry_kernel"), ("K3", "::expand_kernel<true>"),
              ("K4", "::expand_kernel<false>"), ("K5", "::spmm_kernel"),
              ("prune_compact", "::prune_compact_kernel"),
@@ -626,8 +636,9 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     counts = {name: k.launches for name, k in kernels.items()}
     syncs = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
     stage1 = _stage1_launches(prep["tplan"])
+    # an rmat14 flow keeps 32-bit keys: no 64-bit instantiation launches
     want_counts = dict(stage1, K2=stage1["K2"] + 1 + 2 * (MCL_ITERS - 1), K4=0, K5=0,
-                       prune_compact=1)
+                       prune_compact=1, K2_64=0, prune_compact_64=0)
     if counts != want_counts:
         raise RuntimeError(f"warm mcl_run launches {counts}, want {want_counts}")
     if len(syncs) > 2:
@@ -896,6 +907,170 @@ def _prune_compact_phase(torch, np, dev) -> dict:
           f"chain's compaction before the kernel {before_ms:.4f} ms; max |err| {err}")
     _phase("prune_compact timing", t0)
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound, "by": by}
+
+
+def _wide_phase(torch, np, dev, kernels) -> dict:
+    """The MCL chain's 64-bit-key kernels at the shapes of the benchmark's
+    lfr19_k20_mu03.mcl4 cell (n = 2**19, n² ≥ 2³²): the configuration's
+    flow (the benchmark's own generator), ``mcl_prepare`` and
+    ``mcl_size`` as the cell runs them, then one warm ``mcl_run`` with
+    its launches counted (the 64-bit instantiations on the wide path,
+    the 32-bit prune-and-compact kernel not at all), whose first
+    squaring's merged stream (``prune_compact_64``) and largest loop
+    merge (``K2_64``) are caught. Each kernel is held to its plain
+    version on its stream: the prune and compaction bit for bit (sorted
+    as the chain sorts it, ``ok`` too), the merge's structure and nnz
+    exactly and its values within VAL_RTOL (the plain version's
+    ``index_add_`` sums in another order). Then each is timed
+    (device-only CUDA events; with the host's launch; the profiler) beside
+    its bound: K2_64 25 B a slot, prune_compact_64 5 B a slot and 20 B a
+    survivor. Returns both kernels' numbers for their rows of the
+    ``kernels`` line, and the warm run's launches."""
+    import importlib
+
+    from benchmark.reference import lfr
+    from benchmark.reference import mcl as ref_mcl
+    from outerspace_tpu_torch.formats.csr import CSR
+    from outerspace_tpu_torch.ops import chain, graph
+    from outerspace_tpu_torch.ops.kernels import compact, scan
+
+    t0 = time.perf_counter()
+    config = json.loads((ROOT / "benchmark" / "configs" / "lfr19_k20_mu03.json").read_text())
+    inflation, threshold = 2.0, 1e-4
+    flow = CSR(*ref_mcl.flow_of(lfr.make(config)))
+    prep = graph.mcl_prepare(flow, inflation=inflation, iters=MCL_ITERS,
+                             prune_threshold=threshold, device=dev)
+    graph.mcl_size(prep)
+    n = prep["n"]
+    if compact.key_dtype(n) != torch.int64:
+        raise RuntimeError(f"lfr19_k20_mu03: n {n} does not take 64-bit keys")
+    graph.mcl_run(prep).to_csr()  # a first run: the fast path's budgets
+    _phase("wide path: lfr19_k20_mu03 graph, prepare and sizing", t0)
+
+    t0 = time.perf_counter()
+    spgemm_mod = importlib.import_module("outerspace_tpu_torch.ops.spgemm")
+    real_k2, real_pc = spgemm_mod.merge_epilogue_scan, chain.prune_compact
+    caught = {"K2_64": None, "prune_compact_64": None}
+
+    def catch_k2(key, vals, pad_count, *, n_cols, sentinel_row):
+        if key.dtype == torch.int64 and (caught["K2_64"] is None
+                                         or key.numel() > caught["K2_64"][0].numel()):
+            caught["K2_64"] = (key.clone(), vals.clone(), pad_count, n_cols, sentinel_row)
+        return real_k2(key, vals, pad_count, n_cols=n_cols, sentinel_row=sentinel_row)
+
+    def catch_pc(rows, cols, vals, valid, **kw):
+        caught["prune_compact_64"] = (tuple(t.clone() for t in (rows, cols, vals, valid)), kw)
+        return real_pc(rows, cols, vals, valid, **kw)
+
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    spgemm_mod.merge_epilogue_scan, chain.prune_compact = catch_k2, catch_pc
+    try:
+        graph.mcl_run(prep).to_csr()
+    finally:
+        spgemm_mod.merge_epilogue_scan, chain.prune_compact = real_k2, real_pc
+    torch.cuda.synchronize()
+    counts = {name: k.launches for name, k in kernels.items()}
+    stage1 = _stage1_launches(prep["tplan"])
+    want_counts = dict(stage1, K2=stage1["K2"] + MCL_ITERS, K4=0, K5=0, prune_compact=0,
+                       K2_64=MCL_ITERS - 1, prune_compact_64=1)
+    if counts != want_counts or prep["ran_with"]["p_pad"] != prep["p_pad"]:
+        raise RuntimeError(f"warm wide mcl_run launches {counts}, want {want_counts} on the "
+                           f"fast path")
+    print(f"lfr19_k20_mu03 warm mcl_run (n {n}, flow nnz {flow.nnz}, "
+          f"{len(getattr(prep['tplan'], 'parts', [0]))} first-squaring parts): launches {counts} "
+          f"(the first squaring's {stage1}, prune_compact_64 once, K2 once a column "
+          f"normalisation, K2_64 once a loop merge)")
+    del prep, flow
+    torch.cuda.empty_cache()
+
+    # prune_compact_64 on the first squaring's stream
+    (rows, cols, vals, valid), kw = caught.pop("prune_compact_64")
+    slots = rows.shape[0]
+    survivors = int((valid & (vals > kw["thr_root"])).sum())
+
+    def sort(out):
+        return (*chain._sort_pair(out[0], out[1]), out[2])
+
+    got = sort(compact.prune_compact(rows, cols, vals, valid, **kw))
+    plain = sort(compact.prune_compact_plain(rows, cols, vals, valid, **kw))
+    torch.cuda.synchronize()
+    if got[0].dtype != torch.int64 or not (bool(got[2]) and bool(plain[2])):
+        raise RuntimeError(f"prune_compact_64: keys {got[0].dtype}, ok {bool(got[2])}, plain "
+                           f"ok {bool(plain[2])}")
+    pc_err = float((got[1] - plain[1]).abs().max())
+    if not (torch.equal(got[0], plain[0])
+            and torch.equal(got[1].view(torch.int32), plain[1].view(torch.int32))):
+        raise RuntimeError(f"prune_compact_64 differs from its plain version (values max |err| "
+                           f"{pc_err:.3e}; want bit-equal)")
+    if int((got[0] != chain._sentinel(torch.int64)).sum()) != survivors:
+        raise RuntimeError("prune_compact_64: the survivors were not all kept")
+    del got, plain
+    spin = _spin_cycles(torch, 100.0)
+    kernel = lambda: compact.prune_compact(rows, cols, vals, valid, **kw)  # noqa: E731
+    pc_ms = _device_ms(torch, kernel, spin)
+    pc_host_ms = _median_ms(torch, kernel)
+    pc_plain_ms = _median_ms(torch, lambda: compact.prune_compact_plain(
+        rows, cols, vals, valid, **kw), reps=3, warmup=1)
+    prof = _profile_line(torch, "prune_compact_64, lfr19_k20_mu03 first squaring", kernel)
+    pc_prof = (f"{prof['prune_compact_64'] + prof.get('prune_compact_64 tail', 0.0):.4f} ms "
+               f"profiler (main pass {prof['prune_compact_64']:.4f}, tail "
+               f"{prof.get('prune_compact_64 tail', 0.0):.4f})"
+               if "prune_compact_64" in prof else "profiler not measured")
+    pc_bound, pc_by = _bound(slots * 5 + survivors * 20, 0)
+    print(f"prune_compact_64 on lfr19_k20_mu03's first squaring ({slots:,} slots, {survivors:,} "
+          f"survive, elem_pad {kw['elem_pad']:,}, cap {kw['cap']}): == plain bit for bit; "
+          f"{pc_ms:.4f} ms device-only events, {pc_host_ms:.4f} ms with the host's launch, "
+          f"{pc_prof}; {100 * pc_bound / pc_ms:.1f}% of its "
+          f"{pc_bound:.4f} ms bound (5 B a slot, 20 B a survivor, at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); the plain version {pc_plain_ms:.4f} ms (with its "
+          f"host read)")
+    del rows, cols, vals, valid, kernel
+    torch.cuda.empty_cache()
+    _phase("wide path: prune_compact_64", t0)
+
+    # K2_64 on the largest loop merge
+    t0 = time.perf_counter()
+    key, kvals, pad, n_cols, sentinel = caught.pop("K2_64")
+    got = scan.merge_epilogue_scan(key, kvals, pad, n_cols=n_cols, sentinel_row=sentinel)
+    want = scan.merge_epilogue_plain(key, kvals, pad, n_cols=n_cols, sentinel_row=sentinel)
+    torch.cuda.synchronize()
+    for i, nm in ((0, "rows"), (1, "cols"), (3, "valid"), (4, "nnz")):
+        if not torch.equal(got[i], want[i]):
+            raise RuntimeError(f"K2_64 {nm} disagree with plain on the lfr19 loop merge")
+    if not torch.allclose(got[2], want[2], rtol=VAL_RTOL, atol=VAL_ATOL):
+        raise RuntimeError("K2_64 values disagree with plain on the lfr19 loop merge")
+    k2_err = float((got[2] - want[2]).abs().max())
+    real = int((key != chain._sentinel(torch.int64)).sum())
+    nnz = int(got[4])
+    del got, want
+    torch.cuda.empty_cache()
+    kernel = lambda: scan.merge_epilogue_scan(  # noqa: E731
+        key, kvals, pad, n_cols=n_cols, sentinel_row=sentinel)
+    k2_ms = _device_ms(torch, kernel, spin)
+    k2_host_ms = _median_ms(torch, kernel)
+    k2_plain_ms = _median_ms(torch, lambda: scan.merge_epilogue_plain(
+        key, kvals, pad, n_cols=n_cols, sentinel_row=sentinel), reps=3, warmup=1)
+    prof = _profile_line(torch, "K2_64, lfr19_k20_mu03 largest loop merge", kernel)
+    k2_prof = (f"{prof['K2_64'] + prof.get('K2_64 carry', 0.0):.4f} ms profiler (tile pass "
+               f"{prof['K2_64']:.4f}, carry {prof.get('K2_64 carry', 0.0):.4f})"
+               if "K2_64" in prof else "profiler not measured")
+    k2_bound, k2_by = _bound(key.numel() * (8 + 4 + 4 + 4 + 4 + 1) + 4, key.numel())
+    print(f"K2_64 on lfr19_k20_mu03's largest loop merge ({key.numel():,} slots, {real:,} "
+          f"products, {nnz:,} merged): structure and nnz == plain, values max |err| "
+          f"{k2_err:.3e}; {k2_ms:.4f} ms device-only events, {k2_host_ms:.4f} ms with the "
+          f"host's launch, {k2_prof}; {100 * k2_bound / k2_ms:.1f}% of its "
+          f"{k2_bound:.4f} ms bound (25 B a slot); the plain version {k2_plain_ms:.4f} ms "
+          f"(with its host read)")
+    del key, kvals, kernel
+    torch.cuda.empty_cache()
+    _phase("wide path: K2_64", t0)
+    return {"launches": counts,
+            "K2_64": {"err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound": k2_bound,
+                      "by": k2_by},
+            "prune_compact_64": {"err": pc_err, "ms": pc_ms, "plain_ms": pc_plain_ms,
+                                 "bound": pc_bound, "by": pc_by}}
 
 
 def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want: int,
@@ -2035,6 +2210,7 @@ def main() -> int:
     # ---- Markov clustering: mcl_rmat14_4iter, K1 and K2 on its path
     mcl_launches = _mcl_phase(torch, np, dev, kernels, _spin_cycles(torch))
     pc = _prune_compact_phase(torch, np, dev)
+    wide = _wide_phase(torch, np, dev, kernels)
 
     # ---- sparse-NN inference: the trained weights, four requests per model
     t0 = time.perf_counter()
@@ -2577,6 +2753,8 @@ def main() -> int:
 
     for k in ("K1", "K2", "prune_compact"):  # the MCL path's warm run launches them too
         launches[k] += mcl_launches[k]
+    for k, c in wide["launches"].items():  # and the wide path's warm run
+        launches[k] += c
     k1_err, k3_err = max(k1_err, mcl_launches["K1 err"]), max(k3_err, mcl_launches["K3 err"])
     k1_err, k3_err = max(k1_err, sharded["K1 err"]), max(k3_err, sharded["K3 err"])
     k2_err, k5_err = max(k2_err, sharded["K2 err"]), max(k5_err, sharded["K5 err"])
@@ -2602,6 +2780,14 @@ def main() -> int:
         row("prune_compact (the MCL first squaring's prune and compaction)", "cuda",
             "outerspace_tpu_torch/csrc/prune_compact.cu", None,
             "prune_compact", pc["err"], pc["ms"], pc["plain_ms"], pc["bound"], pc["by"], None),
+        *(row(name, "cuda", source, None, key, w["err"], w["ms"], w["plain_ms"], w["bound"],
+              w["by"], None)
+          for name, source, key, w in (
+              ("K2_64 scan (merge epilogue over 64-bit keys; the MCL loop past n² = 2³²)",
+               "outerspace_tpu_torch/csrc/scan.cu", "K2_64", wide["K2_64"]),
+              ("prune_compact_64 (the MCL first squaring's prune and compaction into 64-bit "
+               "keys)", "outerspace_tpu_torch/csrc/prune_compact.cu", "prune_compact_64",
+               wide["prune_compact_64"]))),
     ]}
     print(json.dumps(record))
     print(_card_line())

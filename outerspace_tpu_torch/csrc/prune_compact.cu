@@ -47,6 +47,13 @@
 // <= cap), the bound under which the JAX package's blocked compaction is
 // exact, so the same inputs take the fast path or the fallback in both
 // packages.
+//
+// The 64-bit instantiation (prune_compact64_launch; kernels
+// prune_compact_kernel_wide, prune_compact_tail_wide) writes plain int64
+// keys cols[i]*m + rows[i] and fills with INT64_MAX, for flows with
+// m^2 >= 2^32, whose CSC keys pass 32 bits; it reads what the 32-bit one
+// reads and writes 4 more bytes a survivor. The 32-bit kernels are the
+// same templates at int keys, unchanged.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -62,12 +69,29 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTailThreads = 256;
 constexpr int kTailBlocks = 1024;
 
-__global__ void __launch_bounds__(kThreads)
-prune_compact_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
-                     const float* __restrict__ vals, const unsigned char* __restrict__ valid,
-                     long long n, float thr, unsigned m, unsigned elem_pad,
-                     int* __restrict__ kp, float* __restrict__ vp,
-                     unsigned* __restrict__ counts) {
+// A survivor's key, and the sentinel, of each instantiation: the biased
+// int32 (cols*m + rows) ^ 2^31 in 32-bit unsigned arithmetic, or the
+// plain int64 cols*m + rows.
+__device__ __forceinline__ int csc_key(int col, int row, unsigned m, int) {
+  const unsigned key = static_cast<unsigned>(col) * m + static_cast<unsigned>(row);
+  return static_cast<int>(key ^ 0x80000000u);
+}
+
+__device__ __forceinline__ long long csc_key(int col, int row, unsigned m, long long) {
+  return static_cast<long long>(col) * m + row;
+}
+
+__device__ __forceinline__ int sentinel(int) { return INT_MAX; }
+
+__device__ __forceinline__ long long sentinel(long long) { return LLONG_MAX; }
+
+template <typename K>
+__device__ __forceinline__ void
+prune_compact_body(const int* __restrict__ rows, const int* __restrict__ cols,
+                   const float* __restrict__ vals, const unsigned char* __restrict__ valid,
+                   long long n, float thr, unsigned m, unsigned elem_pad,
+                   K* __restrict__ kp, float* __restrict__ vp,
+                   unsigned* __restrict__ counts) {
   __shared__ int s_warp[kWarps];
   __shared__ unsigned s_base;
   const int t = threadIdx.x;
@@ -141,9 +165,7 @@ prune_compact_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
       if (bits >> (4 * j + k) & 1u) {
         if (dest < elem_pad) {
           const long long s = base + 4LL * (j * kThreads + t) + k;
-          const unsigned key = static_cast<unsigned>(__ldg(cols + s)) * m +
-                               static_cast<unsigned>(__ldg(rows + s));
-          kp[dest] = static_cast<int>(key ^ 0x80000000u);
+          kp[dest] = csc_key(__ldg(cols + s), __ldg(rows + s), m, K());
           vp[dest] = v[j][k];
         }
         ++dest;
@@ -152,32 +174,62 @@ prune_compact_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   }
 }
 
-// The slots past the survivors get (INT32_MAX, 0); ok from the counts.
-__global__ void __launch_bounds__(kTailThreads)
-prune_compact_tail(const unsigned* __restrict__ counts, unsigned elem_pad, unsigned cap,
-                   int* __restrict__ kp, float* __restrict__ vp,
-                   unsigned char* __restrict__ ok) {
+__global__ void __launch_bounds__(kThreads)
+prune_compact_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
+                     const float* __restrict__ vals, const unsigned char* __restrict__ valid,
+                     long long n, float thr, unsigned m, unsigned elem_pad,
+                     int* __restrict__ kp, float* __restrict__ vp,
+                     unsigned* __restrict__ counts) {
+  prune_compact_body<int>(rows, cols, vals, valid, n, thr, m, elem_pad, kp, vp, counts);
+}
+
+__global__ void __launch_bounds__(kThreads)
+prune_compact_kernel_wide(const int* __restrict__ rows, const int* __restrict__ cols,
+                          const float* __restrict__ vals,
+                          const unsigned char* __restrict__ valid, long long n, float thr,
+                          unsigned m, unsigned elem_pad, long long* __restrict__ kp,
+                          float* __restrict__ vp, unsigned* __restrict__ counts) {
+  prune_compact_body<long long>(rows, cols, vals, valid, n, thr, m, elem_pad, kp, vp, counts);
+}
+
+// The slots past the survivors get (the sentinel, 0); ok from the counts.
+template <typename K>
+__device__ __forceinline__ void
+prune_compact_tail_body(const unsigned* __restrict__ counts, unsigned elem_pad, unsigned cap,
+                        K* __restrict__ kp, float* __restrict__ vp,
+                        unsigned char* __restrict__ ok) {
   const unsigned total = counts[0];
   const long long start = total < elem_pad ? total : elem_pad;
   const long long step = static_cast<long long>(gridDim.x) * kTailThreads;
   for (long long i = start + static_cast<long long>(blockIdx.x) * kTailThreads + threadIdx.x;
        i < elem_pad; i += step) {
-    kp[i] = INT_MAX;
+    kp[i] = sentinel(K());
     vp[i] = 0.0f;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0)
     *ok = total <= elem_pad && (cap == 0 || counts[1] <= cap);
 }
 
-}  // namespace
+__global__ void __launch_bounds__(kTailThreads)
+prune_compact_tail(const unsigned* __restrict__ counts, unsigned elem_pad, unsigned cap,
+                   int* __restrict__ kp, float* __restrict__ vp,
+                   unsigned char* __restrict__ ok) {
+  prune_compact_tail_body<int>(counts, elem_pad, cap, kp, vp, ok);
+}
 
-// counts: two 32-bit words of scratch (the survivors, the most in a tile),
-// zeroed here on the stream before the pass.
-extern "C" int prune_compact_launch(const int* rows, const int* cols, const float* vals,
-                                    const unsigned char* valid, int n, float thr, int m,
-                                    int elem_pad, int cap, int* kp, float* vp,
-                                    unsigned char* ok, unsigned* counts, int device,
-                                    void* stream) {
+__global__ void __launch_bounds__(kTailThreads)
+prune_compact_tail_wide(const unsigned* __restrict__ counts, unsigned elem_pad, unsigned cap,
+                        long long* __restrict__ kp, float* __restrict__ vp,
+                        unsigned char* __restrict__ ok) {
+  prune_compact_tail_body<long long>(counts, elem_pad, cap, kp, vp, ok);
+}
+
+// Both passes of one instantiation.
+template <typename K>
+int launch(const int* rows, const int* cols, const float* vals, const unsigned char* valid,
+           int n, float thr, int m, int elem_pad, int cap, K* kp, float* vp,
+           unsigned char* ok, unsigned* counts, int device, void* stream) {
+  constexpr bool kWide = sizeof(K) == 8;
   if (n < 0 || m <= 0 || elem_pad < 0 || cap < 0) return static_cast<int>(cudaErrorInvalidValue);
   // the vector loads: vals as float4, valid as 4-byte words
   if (reinterpret_cast<std::uintptr_t>(vals) % 16 || reinterpret_cast<std::uintptr_t>(valid) % 4)
@@ -189,17 +241,50 @@ extern "C" int prune_compact_launch(const int* rows, const int* cols, const floa
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (static_cast<long long>(n) + kTile - 1) / kTile;
   if (tiles > 0) {
-    prune_compact_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
-        rows, cols, vals, valid, n, thr, static_cast<unsigned>(m),
-        static_cast<unsigned>(elem_pad), kp, vp, counts);
+    const unsigned grid = static_cast<unsigned>(tiles);
+    if constexpr (kWide)
+      prune_compact_kernel_wide<<<grid, kThreads, 0, st>>>(
+          rows, cols, vals, valid, n, thr, static_cast<unsigned>(m),
+          static_cast<unsigned>(elem_pad), kp, vp, counts);
+    else
+      prune_compact_kernel<<<grid, kThreads, 0, st>>>(
+          rows, cols, vals, valid, n, thr, static_cast<unsigned>(m),
+          static_cast<unsigned>(elem_pad), kp, vp, counts);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long long want = (static_cast<long long>(elem_pad) + kTailThreads - 1) / kTailThreads;
   const int blocks = static_cast<int>(want < 1 ? 1 : (want > kTailBlocks ? kTailBlocks : want));
-  prune_compact_tail<<<blocks, kTailThreads, 0, st>>>(counts, static_cast<unsigned>(elem_pad),
-                                                      static_cast<unsigned>(cap), kp, vp, ok);
+  if constexpr (kWide)
+    prune_compact_tail_wide<<<blocks, kTailThreads, 0, st>>>(
+        counts, static_cast<unsigned>(elem_pad), static_cast<unsigned>(cap), kp, vp, ok);
+  else
+    prune_compact_tail<<<blocks, kTailThreads, 0, st>>>(
+        counts, static_cast<unsigned>(elem_pad), static_cast<unsigned>(cap), kp, vp, ok);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// counts: two 32-bit words of scratch (the survivors, the most in a tile),
+// zeroed here on the stream before the pass.
+extern "C" int prune_compact_launch(const int* rows, const int* cols, const float* vals,
+                                    const unsigned char* valid, int n, float thr, int m,
+                                    int elem_pad, int cap, int* kp, float* vp,
+                                    unsigned char* ok, unsigned* counts, int device,
+                                    void* stream) {
+  return launch<int>(rows, cols, vals, valid, n, thr, m, elem_pad, cap, kp, vp, ok, counts,
+                     device, stream);
+}
+
+// The 64-bit instantiation: the same arguments, kp as int64.
+extern "C" int prune_compact64_launch(const int* rows, const int* cols, const float* vals,
+                                      const unsigned char* valid, int n, float thr, int m,
+                                      int elem_pad, int cap, long long* kp, float* vp,
+                                      unsigned char* ok, unsigned* counts, int device,
+                                      void* stream) {
+  return launch<long long>(rows, cols, vals, valid, n, thr, m, elem_pad, cap, kp, vp, ok,
+                           counts, device, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -52,6 +52,15 @@
 // added in tile order (deterministic: two launches on the same input give
 // bit-equal values), and the 2^32 corner rule sets the terminal slot and
 // nnz.
+//
+// The 64-bit instantiation (scan64_launch; kernels scan_tile_kernel_wide,
+// scan_carry_kernel_wide) takes plain int64 keys row*n + col, for an index
+// space past 2^32 (the MCL chain's loop from m^2 >= 2^32 on), sorted
+// ascending with the sentinel INT64_MAX. It reads each key as 8 bytes
+// (a thread's 4 keys as two 16-byte words), decodes row and column by a
+// 64-bit division, and never counts a sentinel slot as real: no key of
+// an index space below 2^62 is INT64_MAX, so pad_count is not read. The
+// 32-bit kernels are the same templates at int keys, unchanged.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -108,6 +117,51 @@ __device__ __forceinline__ unsigned div_magic(unsigned n, unsigned long long mag
   return magic ? static_cast<unsigned>(__umul64hi(magic, n)) : n;
 }
 
+// The keys of each instantiation: the sentinel, a thread's 4 keys loaded
+// as 16-byte words, and a real key decoded to (row, col).
+template <typename K>
+struct Keys;
+
+template <>
+struct Keys<int> {
+  static constexpr int kSentinel = INT_MAX;
+  __device__ static void load4(const int* p, int* k) {
+    const int4 a = *reinterpret_cast<const int4*>(p);
+    k[0] = a.x;
+    k[1] = a.y;
+    k[2] = a.z;
+    k[3] = a.w;
+  }
+  // biased: key ^ 2^31 is the unsigned row * n_cols + col
+  __device__ static void decode(int k, unsigned n_cols, unsigned long long magic, int& row,
+                                int& col) {
+    const unsigned ku = static_cast<unsigned>(k) ^ 0x80000000u;
+    const unsigned r = div_magic(ku, magic);
+    row = static_cast<int>(r);
+    col = static_cast<int>(ku - r * n_cols);
+  }
+};
+
+template <>
+struct Keys<long long> {
+  static constexpr long long kSentinel = LLONG_MAX;
+  __device__ static void load4(const long long* p, long long* k) {
+    const longlong2 a = reinterpret_cast<const longlong2*>(p)[0];
+    const longlong2 b = reinterpret_cast<const longlong2*>(p)[1];
+    k[0] = a.x;
+    k[1] = a.y;
+    k[2] = b.x;
+    k[3] = b.y;
+  }
+  __device__ static void decode(long long k, unsigned n_cols, unsigned long long, int& row,
+                                int& col) {
+    const unsigned long long ku = static_cast<unsigned long long>(k);
+    const unsigned long long r = ku / n_cols;
+    row = static_cast<int>(r);
+    col = static_cast<int>(ku - r * n_cols);
+  }
+};
+
 // component i (0-3) of a
 __device__ __forceinline__ int lane_of(int4 a, int i) {
   return i == 0 ? a.x : (i == 1 ? a.y : (i == 2 ? a.z : a.w));
@@ -120,15 +174,16 @@ __device__ __forceinline__ T warp_sum(T x) {
   return x;
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-scan_tile_kernel(const int* __restrict__ key, const float* __restrict__ vals,
-                 int* __restrict__ rows, int* __restrict__ cols,
-                 float* __restrict__ out_vals, unsigned char* __restrict__ valid,
-                 int* __restrict__ rec, int stride, int n, unsigned n_cols,
-                 unsigned long long magic, int sentinel_row) {
-  __shared__ int s_first[kThreads];
-  __shared__ int s_last[kThreads];
+template <typename K, bool kVec>
+__device__ __forceinline__ void
+scan_tile(const K* __restrict__ key, const float* __restrict__ vals,
+          int* __restrict__ rows, int* __restrict__ cols,
+          float* __restrict__ out_vals, unsigned char* __restrict__ valid,
+          int* __restrict__ rec, int stride, int n, unsigned n_cols,
+          unsigned long long magic, int sentinel_row) {
+  constexpr K kSent = Keys<K>::kSentinel;
+  __shared__ K s_first[kThreads];
+  __shared__ K s_last[kThreads];
   __shared__ int s_wf[kWarps];
   __shared__ float s_wv[kWarps];
   __shared__ int s_sent[kWarps];
@@ -144,20 +199,16 @@ scan_tile_kernel(const int* __restrict__ key, const float* __restrict__ vals,
   const int nv = left <= 0 ? 0 : (left >= kPer ? kPer : static_cast<int>(left));
   const bool vec = kVec && nv == kPer;
   // the keys beside the tile, loaded with the tile's own
-  const int before = t == 0 && base > 0 ? key[base - 1] : 0;
-  const int after = t == kThreads - 1 && base + kTile < n ? key[base + kTile] : 0;
+  const K before = t == 0 && base > 0 ? key[base - 1] : 0;
+  const K after = t == kThreads - 1 && base + kTile < n ? key[base + kTile] : 0;
 
-  int k[kPer];
+  K k[kPer];
   float v[kPer];
   if (vec) {
 #pragma unroll
     for (int q = 0; q < kPer / 4; ++q) {
-      const int4 a = reinterpret_cast<const int4*>(key + i0)[q];
+      Keys<K>::load4(key + i0 + 4 * q, k + 4 * q);
       const float4 b = reinterpret_cast<const float4*>(vals + i0)[q];
-      k[4 * q] = a.x;
-      k[4 * q + 1] = a.y;
-      k[4 * q + 2] = a.z;
-      k[4 * q + 3] = a.w;
       v[4 * q] = b.x;
       v[4 * q + 1] = b.y;
       v[4 * q + 2] = b.z;
@@ -166,7 +217,7 @@ scan_tile_kernel(const int* __restrict__ key, const float* __restrict__ vals,
   } else {
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
-      k[j] = j < nv ? key[i0 + j] : INT_MAX;
+      k[j] = j < nv ? key[i0 + j] : kSent;
       v[j] = j < nv ? vals[i0 + j] : 0.0f;
     }
   }
@@ -176,9 +227,9 @@ scan_tile_kernel(const int* __restrict__ key, const float* __restrict__ vals,
   __syncthreads();
   // a thread with slots has a full thread before it and, if has_next, a
   // thread after it with slots (or the next tile's first slot)
-  const int prev = t > 0 ? s_last[t - 1] : before;
+  const K prev = t > 0 ? s_last[t - 1] : before;
   const bool has_next = i0 + kPer < n;
-  const int next = t + 1 < kThreads ? s_first[t + 1] : after;
+  const K next = t + 1 < kThreads ? s_first[t + 1] : after;
 
   unsigned start = 0, last = 0, sent = 0;
   Seg own = {0, 0.0f};
@@ -187,11 +238,11 @@ scan_tile_kernel(const int* __restrict__ key, const float* __restrict__ vals,
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     if (j < nv) {
-      const int kp = j > 0 ? k[j > 0 ? j - 1 : 0] : prev;
+      const K kp = j > 0 ? k[j > 0 ? j - 1 : 0] : prev;
       const bool st = (j == 0 && i0 == 0) || kp != k[j];
       const bool la = j + 1 < nv ? k[j + 1 < kPer ? j + 1 : j] != k[j]
                                  : (!has_next || next != k[j]);
-      const bool se = k[j] == INT_MAX;
+      const bool se = k[j] == kSent;
       start |= static_cast<unsigned>(st) << j;
       last |= static_cast<unsigned>(la) << j;
       sent |= static_cast<unsigned>(se) << j;
@@ -248,10 +299,7 @@ scan_tile_kernel(const int* __restrict__ key, const float* __restrict__ vals,
       cc[u] = 0;
       vv[u] = 0.0f;
       if (j < nv && (last >> j & 1u) && !(sent >> j & 1u)) {
-        const unsigned ku = static_cast<unsigned>(k[j]) ^ 0x80000000u;
-        const unsigned r = div_magic(ku, magic);
-        rr[u] = static_cast<int>(r);
-        cc[u] = static_cast<int>(ku - r * n_cols);
+        Keys<K>::decode(k[j], n_cols, magic, rr[u], cc[u]);
         vv[u] = run;
         vb |= 1u << (8 * u);
         if (lead) s_close = static_cast<int>(i0 + j);
@@ -296,11 +344,34 @@ scan_tile_kernel(const int* __restrict__ key, const float* __restrict__ vals,
   }
 }
 
-__global__ void __launch_bounds__(kCarryThreads)
-scan_carry_kernel(const int* __restrict__ key, const int* __restrict__ rec,
-                  int ntiles, int stride, int* __restrict__ rows, int* __restrict__ cols,
-                  float* __restrict__ out_vals, unsigned char* __restrict__ valid,
-                  int* __restrict__ nnz, int n, unsigned n_cols, int pad_count) {
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+scan_tile_kernel(const int* __restrict__ key, const float* __restrict__ vals,
+                 int* __restrict__ rows, int* __restrict__ cols,
+                 float* __restrict__ out_vals, unsigned char* __restrict__ valid,
+                 int* __restrict__ rec, int stride, int n, unsigned n_cols,
+                 unsigned long long magic, int sentinel_row) {
+  scan_tile<int, kVec>(key, vals, rows, cols, out_vals, valid, rec, stride, n, n_cols, magic,
+                       sentinel_row);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+scan_tile_kernel_wide(const long long* __restrict__ key, const float* __restrict__ vals,
+                      int* __restrict__ rows, int* __restrict__ cols,
+                      float* __restrict__ out_vals, unsigned char* __restrict__ valid,
+                      int* __restrict__ rec, int stride, int n, unsigned n_cols,
+                      unsigned long long magic, int sentinel_row) {
+  scan_tile<long long, kVec>(key, vals, rows, cols, out_vals, valid, rec, stride, n, n_cols,
+                             magic, sentinel_row);
+}
+
+template <typename K>
+__device__ __forceinline__ void
+scan_carry(const K* __restrict__ key, const int* __restrict__ rec,
+           int ntiles, int stride, int* __restrict__ rows, int* __restrict__ cols,
+           float* __restrict__ out_vals, unsigned char* __restrict__ valid,
+           int* __restrict__ nnz, int n, unsigned n_cols, int pad_count) {
   __shared__ int s_wf[32];
   __shared__ float s_wv[32];
   __shared__ int s_sent[32];
@@ -310,7 +381,7 @@ scan_carry_kernel(const int* __restrict__ key, const int* __restrict__ rec,
   const int lane = t & 31;
   const int warp = t >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int last_key = t == 0 && n > 0 ? key[n - 1] : 0;
+  const K last_key = t == 0 && n > 0 ? key[n - 1] : 0;
   Seg carry = {0, 0.0f};  // every tile before this chunk
   int sent = 0, live = 0;  // totals before this chunk (thread 0's)
   float ssum = 0.0f;
@@ -400,7 +471,9 @@ scan_carry_kernel(const int* __restrict__ key, const int* __restrict__ rec,
     __syncthreads();
   }
   if (t == 0) {
-    if (n > 0 && last_key == INT_MAX && sent > pad_count) {
+    // the 2^32 corner shares the 32-bit sentinel's bit pattern; no 64-bit
+    // key is the sentinel
+    if (sizeof(K) == 4 && n > 0 && last_key == Keys<K>::kSentinel && sent > pad_count) {
       const unsigned ku = static_cast<unsigned>(INT_MAX) ^ 0x80000000u;
       rows[n - 1] = static_cast<int>(ku / n_cols);
       cols[n - 1] = static_cast<int>(ku % n_cols);
@@ -412,16 +485,30 @@ scan_carry_kernel(const int* __restrict__ key, const int* __restrict__ rec,
   }
 }
 
-}  // namespace
+__global__ void __launch_bounds__(kCarryThreads)
+scan_carry_kernel(const int* __restrict__ key, const int* __restrict__ rec,
+                  int ntiles, int stride, int* __restrict__ rows, int* __restrict__ cols,
+                  float* __restrict__ out_vals, unsigned char* __restrict__ valid,
+                  int* __restrict__ nnz, int n, unsigned n_cols, int pad_count) {
+  scan_carry<int>(key, rec, ntiles, stride, rows, cols, out_vals, valid, nnz, n, n_cols,
+                  pad_count);
+}
 
-// scratch: kRecFields arrays of the tile count rounded up to 4 int32
-// words, 16-byte aligned (the wrapper allocates them; scratch_words says
-// how many it gave). Returns the launches' cudaError_t.
-extern "C" int scan_launch(const int* key, const float* vals, int* rows,
-                           int* cols, float* out_vals, unsigned char* valid,
-                           int* nnz, int* scratch, int scratch_words, int n,
-                           int n_cols, int sentinel_row, int pad_count,
-                           int device, void* stream) {
+__global__ void __launch_bounds__(kCarryThreads)
+scan_carry_kernel_wide(const long long* __restrict__ key, const int* __restrict__ rec,
+                       int ntiles, int stride, int* __restrict__ rows, int* __restrict__ cols,
+                       float* __restrict__ out_vals, unsigned char* __restrict__ valid,
+                       int* __restrict__ nnz, int n, unsigned n_cols, int pad_count) {
+  scan_carry<long long>(key, rec, ntiles, stride, rows, cols, out_vals, valid, nnz, n, n_cols,
+                        pad_count);
+}
+
+// Both launches of one instantiation.
+template <typename K>
+int launch(const K* key, const float* vals, int* rows, int* cols, float* out_vals,
+           unsigned char* valid, int* nnz, int* scratch, int scratch_words, int n, int n_cols,
+           int sentinel_row, int pad_count, int device, void* stream) {
+  constexpr bool kWide = sizeof(K) == 8;
   const long long ntiles = (static_cast<long long>(n) + kTile - 1) / kTile;
   const long long stride = (ntiles + 3) / 4 * 4;
   if (n < 0 || n_cols <= 0 || stride * kRecFields > scratch_words ||
@@ -438,22 +525,61 @@ extern "C" int scan_launch(const int* key, const float* vals, int* rows,
         reinterpret_cast<std::uintptr_t>(rows) | reinterpret_cast<std::uintptr_t>(cols) |
         reinterpret_cast<std::uintptr_t>(out_vals) |
         reinterpret_cast<std::uintptr_t>(valid);
-    if (addr % 16 == 0)
-      scan_tile_kernel<true><<<static_cast<unsigned>(ntiles), kThreads, 0, st>>>(
-          key, vals, rows, cols, out_vals, valid, scratch, static_cast<int>(stride), n, nc, magic, sentinel_row);
-    else
-      scan_tile_kernel<false><<<static_cast<unsigned>(ntiles), kThreads, 0, st>>>(
-          key, vals, rows, cols, out_vals, valid, scratch, static_cast<int>(stride), n, nc, magic, sentinel_row);
+    const unsigned grid = static_cast<unsigned>(ntiles);
+    const int s = static_cast<int>(stride);
+    if constexpr (kWide) {
+      if (addr % 16 == 0)
+        scan_tile_kernel_wide<true><<<grid, kThreads, 0, st>>>(
+            key, vals, rows, cols, out_vals, valid, scratch, s, n, nc, magic, sentinel_row);
+      else
+        scan_tile_kernel_wide<false><<<grid, kThreads, 0, st>>>(
+            key, vals, rows, cols, out_vals, valid, scratch, s, n, nc, magic, sentinel_row);
+    } else {
+      if (addr % 16 == 0)
+        scan_tile_kernel<true><<<grid, kThreads, 0, st>>>(
+            key, vals, rows, cols, out_vals, valid, scratch, s, n, nc, magic, sentinel_row);
+      else
+        scan_tile_kernel<false><<<grid, kThreads, 0, st>>>(
+            key, vals, rows, cols, out_vals, valid, scratch, s, n, nc, magic, sentinel_row);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long long want = (ntiles + kRecPer * 32 - 1) / (kRecPer * 32) * 32;
   const int threads = static_cast<int>(want < 32 ? 32 : (want > kCarryThreads ? kCarryThreads : want));
-  scan_carry_kernel<<<1, threads, 0, st>>>(key, scratch, static_cast<int>(ntiles),
-                                           static_cast<int>(stride),
-                                           rows, cols, out_vals, valid, nnz, n,
-                                           nc, pad_count);
+  if constexpr (kWide)
+    scan_carry_kernel_wide<<<1, threads, 0, st>>>(key, scratch, static_cast<int>(ntiles),
+                                                  static_cast<int>(stride), rows, cols,
+                                                  out_vals, valid, nnz, n, nc, pad_count);
+  else
+    scan_carry_kernel<<<1, threads, 0, st>>>(key, scratch, static_cast<int>(ntiles),
+                                             static_cast<int>(stride), rows, cols, out_vals,
+                                             valid, nnz, n, nc, pad_count);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// scratch: kRecFields arrays of the tile count rounded up to 4 int32
+// words, 16-byte aligned (the wrapper allocates them; scratch_words says
+// how many it gave). Returns the launches' cudaError_t.
+extern "C" int scan_launch(const int* key, const float* vals, int* rows,
+                           int* cols, float* out_vals, unsigned char* valid,
+                           int* nnz, int* scratch, int scratch_words, int n,
+                           int n_cols, int sentinel_row, int pad_count,
+                           int device, void* stream) {
+  return launch<int>(key, vals, rows, cols, out_vals, valid, nnz, scratch, scratch_words, n,
+                     n_cols, sentinel_row, pad_count, device, stream);
+}
+
+// The 64-bit instantiation: the same arguments, keys as int64.
+extern "C" int scan64_launch(const long long* key, const float* vals, int* rows,
+                             int* cols, float* out_vals, unsigned char* valid,
+                             int* nnz, int* scratch, int scratch_words, int n,
+                             int n_cols, int sentinel_row, int pad_count,
+                             int device, void* stream) {
+  return launch<long long>(key, vals, rows, cols, out_vals, valid, nnz, scratch, scratch_words,
+                           n, n_cols, sentinel_row, pad_count, device, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -18,11 +18,18 @@ between products; the host reads a few scalars, never the matrix.
   reads it once and falls back to the exact stepwise chain when it did
   not.
 
-The flow stays in CSC order inside the loop, as a stream of biased keys
-``col·m + row − 2³¹`` (int32; INT32_MAX marks an empty slot) with its
-values. MCL requires m·n < 2³², so no real key equals the sentinel: the
-merges here pass the stream length as K2's ``pad_count``, which keeps
-K2's corner rule off without reading P on the host.
+The flow stays in CSC order inside the loop, as a stream of keys
+``col·m + row`` with its values. While m² < 2³² the keys are biased
+int32, ``col·m + row − 2³¹`` (INT32_MAX marks an empty slot), and no
+real key equals the sentinel: the merges here pass the stream length as
+K2's ``pad_count``, which keeps K2's corner rule off without reading P
+on the host. From m² ≥ 2³² on (:func:`key_dtype`) every key of the
+chain is a plain int64 ``col·m + row`` (INT64_MAX marks an empty slot):
+the first squaring's compaction, each loop squaring's merged stream,
+sort, column starts and compaction, the final sort and the exact
+fallback. The first squaring itself merges part-local int32 keys, and
+the column normalisation sorts by column alone, which fits int32 at any
+m. The dtype follows from m, and every helper reads it from its keys.
 
 The JAX package computes all of this with XLA sorts, scans, gathers and
 scatters, outside any Pallas kernel, so it is plain PyTorch here; its
@@ -47,7 +54,7 @@ import numpy as np
 import torch
 
 from outerspace_tpu_torch.ops.gather_pipeline import GatherPipelinePlan, spgemm_gather_padded
-from outerspace_tpu_torch.ops.kernels.compact import CAP_BLOCK, prune_compact
+from outerspace_tpu_torch.ops.kernels.compact import CAP_BLOCK, key_dtype, prune_compact
 from outerspace_tpu_torch.ops.spgemm import (
     I32_MAX,
     KEY_BIAS,
@@ -58,23 +65,47 @@ from outerspace_tpu_torch.ops.spgemm import (
     merge_epilogue,
     pack_key_biased,
     spgemm_padded_tiled_parts,
-    unpack_key_biased,
 )
 from outerspace_tpu_torch.ops.symbolic import round_up_bucket
 from outerspace_tpu_torch.perf.timer import span
 
 _U32 = 2**32
+I64_MAX = 2**63 - 1
 # the fused chain's product budget: the first squaring's P times this
 P_HEADROOM = 1.5
 
 
+def _sentinel(dtype: torch.dtype) -> int:
+    """The empty slot's key in a key stream of ``dtype``."""
+    return I64_MAX if dtype == torch.int64 else I32_MAX
+
+
+def _pack(major: torch.Tensor, minor: torch.Tensor, n_minor: int, dtype: torch.dtype):
+    """The key ``major·n_minor + minor`` in ``dtype``: biased int32
+    (:func:`pack_key_biased`) or plain int64."""
+    if dtype == torch.int64:
+        return major.long() * n_minor + minor.long()
+    return pack_key_biased(major, minor, n_minor)
+
+
+def _unpack(key: torch.Tensor, n_minor: int):
+    """Inverse of :func:`_pack`: (major, minor) as int32."""
+    ku = _ukey(key)
+    return (ku // n_minor).to(torch.int32), (ku % n_minor).to(torch.int32)
+
+
 def _ukey(key: torch.Tensor) -> torch.Tensor:
-    """The unsigned value (int64) of biased int32 keys."""
-    return key.long() - KEY_BIAS
+    """The unsigned value (int64) of the chain's keys: biased int32 keys
+    shifted by 2³¹, int64 keys as they are."""
+    return key if key.dtype == torch.int64 else key.long() - KEY_BIAS
 
 
 def _col_keys(kcsc: torch.Tensor, m: int) -> torch.Tensor:
-    """The biased column keys ``col − 2³¹`` of a CSC stream's keys."""
+    """The biased column keys ``col − 2³¹`` (int32) of a CSC stream's
+    keys; an int64 stream's empty slots take column m."""
+    if kcsc.dtype == torch.int64:
+        col = torch.where(kcsc != I64_MAX, kcsc // m, m)
+        return (col + KEY_BIAS).to(torch.int32)
     return (_ukey(kcsc) // m + KEY_BIAS).to(torch.int32)
 
 
@@ -103,7 +134,7 @@ def _fit(key, val, size: int):
     extra = size - key.shape[0]
     if extra <= 0:
         return key[:size], val[:size]
-    return (torch.cat([key, key.new_full((extra,), I32_MAX)]),
+    return (torch.cat([key, key.new_full((extra,), _sentinel(key.dtype))]),
             torch.cat([val, val.new_zeros(extra)]))
 
 
@@ -143,10 +174,9 @@ def _slice_compact(rows, cols, vals, valid, *, nnz_pad: int):
 
 def _check_square(shape) -> tuple[int, int]:
     m, n = shape
-    # strictly < 2³²: the CSC key (col·m + row) of the (m-1, m-1) corner
-    # would equal the sentinel at 2³²
-    if m != n or m * n >= _U32:
-        raise ValueError(f"the device chain needs a square flow with m*n < 2^32, got {shape}")
+    # rows and columns are int32; keys take int64 from m·n = 2³² on
+    if m != n or not 0 < m < 2**31:
+        raise ValueError(f"the device chain needs a square flow with 0 < m < 2^31, got {shape}")
     return m, n
 
 
@@ -163,9 +193,12 @@ def spgemm_from_device_csr(a_rows, a_cols, a_vals, b_cols, b_vals, b_indptr, *,
     its packed (col, row) keys, the expansion offsets come from B's row
     degrees gathered per element, then the flat expand over ``p_pad``
     slots (which must hold P), sort and K2. Returns (rows, cols, vals,
-    valid, nnz) of length ``p_pad``; requires m·n < 2³²."""
+    valid, nnz) of length ``p_pad``; keys in :func:`key_dtype` of
+    (m, n)."""
+    dtype = key_dtype(m, n)
+    sent = _sentinel(dtype)
     valid_a = a_rows < m
-    csc_key = torch.where(valid_a, pack_key_biased(a_cols, a_rows, m), I32_MAX)
+    csc_key = torch.where(valid_a, _pack(a_cols, a_rows, m, dtype), sent)
     with span("sort"):
         _, order = torch.sort(csc_key)
         rows_s, cols_s, vals_s = a_rows[order], a_cols[order], a_vals[order]
@@ -180,9 +213,9 @@ def spgemm_from_device_csr(a_rows, a_cols, a_vals, b_cols, b_vals, b_indptr, *,
             b_indptr, b_cols, b_vals, offsets, p_total, p_pad, m,
         )
         key = torch.where(torch.arange(p_pad, device=r.device) < p_total,
-                          pack_key_biased(r, c, n), I32_MAX)
-    # every slot counts as padding for K2: no real key is the sentinel
-    # below 2³², and P stays on the card
+                          _pack(r, c, n, dtype), sent)
+    # every slot counts as padding for K2: no real key is the sentinel,
+    # and P stays on the card
     return merge_biased_keys(key, v, n, m, p_pad)
 
 
@@ -254,7 +287,7 @@ def _column_starts(kstream: torch.Tensor, m: int) -> torch.Tensor:
     """Column start positions (int32[m+1]) of a stream sorted by the
     packed CSC key ``col·m + row``: the ranks of the probes ``c·m``."""
     c = torch.arange(m + 1, device=kstream.device)
-    return ranks_in_sorted(kstream, pack_key_biased(c, torch.zeros_like(c), m))
+    return ranks_in_sorted(kstream, _pack(c, torch.zeros_like(c), m, kstream.dtype))
 
 
 def _blocks_within(keep: torch.Tensor, cap: int) -> torch.Tensor:
@@ -267,7 +300,7 @@ def _blocks_within(keep: torch.Tensor, cap: int) -> torch.Tensor:
 
 def compact_masked_stream(key, val, out_len: int, *, cap: int):
     """The first ``out_len`` slots of the masked ``(key, val)`` stream in
-    ascending key order (sentinel INT32_MAX = masked; real keys unique,
+    ascending key order (the dtype's sentinel = masked; real keys unique,
     masked slots' values 0), and ``ok``: whether every ``CAP_BLOCK``-slot
     block holds ≤ ``cap`` survivors, the bound under which the JAX
     package's blocked sort is exact (caps come from the host sizing
@@ -277,10 +310,11 @@ def compact_masked_stream(key, val, out_len: int, *, cap: int):
     while ``ok`` holds, so ⌈L/blk⌉·cap slots keep them all) and only
     those are sorted; where ``ok`` is false the result is not used."""
     L = key.shape[0]
-    keep = key != I32_MAX
+    sent = _sentinel(key.dtype)
+    keep = key != sent
     ok = _blocks_within(keep, cap)
     size = min(L, -(-L // CAP_BLOCK) * cap)
-    k, v = _sort_pair(*_to_front(keep, size, (key, I32_MAX), (val, 0.0)))
+    k, v = _sort_pair(*_to_front(keep, size, (key, sent), (val, 0.0)))
     return (*_fit(k, v, out_len), ok)
 
 
@@ -337,7 +371,7 @@ def _loop_expand_fill(kcsc, vals, col_f, valid_f, jb_f, offsets, p_clamped, *,
     one at each slot, whose (row, value) fills it.
 
     Returns (merge key, value) UNSORTED at length p_pad + elem_pad:
-    product slots hold the key ``c_f·m + row + KEY_BIAS`` and
+    product slots hold the key ``c_f·m + row`` in ``kcsc``'s dtype and
     ``a_val·val_q``; table and padding slots the sentinel."""
     mp1 = m + 1
     pin = ((_U32 - 1 - m) // mp1) * mp1 + m  # ≡ m: no table slot, past every product
@@ -369,7 +403,8 @@ def _loop_expand_fill(kcsc, vals, col_f, valid_f, jb_f, offsets, p_clamped, *,
     fill_i = torch.where(seen, tbl_row[q], 0)
     fill_f = torch.where(seen, vals[q], 0.0)
     is_prod = ~is_table & (sk != pin)
-    out_key = torch.where(is_prod, pack_key_biased(sk % mp1 - 1, fill_i, m), I32_MAX)
+    out_key = torch.where(is_prod, _pack(sk % mp1 - 1, fill_i, m, kcsc.dtype),
+                          _sentinel(kcsc.dtype))
     return out_key, torch.where(is_prod, sf * fill_f, 0.0)
 
 
@@ -379,15 +414,15 @@ def _mcl_iteration(state, *, p_pad: int, elem_pad: int, m: int, inflation: float
     host read.
 
     ``state`` = (kcsc, vals, starts_ext, ok): the flow as a compacted
-    CSC stream of ``elem_pad`` slots (sorted biased ``col·m + row`` keys,
-    sentinel tail), its column starts (int32[m+1]) and the 0-d bool
-    ``ok``. The expansion is role-flipped: each element f = (k, c) pairs
-    with CSC column k of the same stream. The merge sorts by C's CSC key,
-    so its output is already in the loop's order; the survivors of the
-    prune (on the raw merged values: v^p > t ⟺ v > t^(1/p)) are
-    front-compacted, in order, to ``elem_pad`` slots, then powered and
-    column-normalised (K2 with ``n_cols=1``). The products take
-    ``p_pad`` slots.
+    CSC stream of ``elem_pad`` slots (sorted ``col·m + row`` keys of
+    :func:`key_dtype`, sentinel tail), its column starts (int32[m+1])
+    and the 0-d bool ``ok``. The expansion is role-flipped: each element
+    f = (k, c) pairs with CSC column k of the same stream. The merge
+    sorts by C's CSC key, so its output is already in the loop's order;
+    the survivors of the prune (on the raw merged values: v^p > t ⟺
+    v > t^(1/p)) are front-compacted, in order, to ``elem_pad`` slots,
+    then powered and column-normalised (K2 with ``n_cols=1``). The
+    products take ``p_pad`` slots.
 
     ``ok`` gathers every budget: P within ``p_pad`` (with the JAX
     package's float32 cross-checks), the survivors within ``elem_pad``
@@ -399,11 +434,10 @@ def _mcl_iteration(state, *, p_pad: int, elem_pad: int, m: int, inflation: float
         raise ValueError(f"join={join!r}: expected 'auto', 'fill', or 'gather'")
     kcsc, vals, starts_ext, ok = state
     dev = kcsc.device
+    sent = _sentinel(kcsc.dtype)
     with span("expand"):
-        ku = _ukey(kcsc)
-        col_f = (ku // m).to(torch.int32)
-        row_f = (ku % m).to(torch.int32)
-        valid_f = kcsc != I32_MAX
+        col_f, row_f = _unpack(kcsc, m)
+        valid_f = kcsc != sent
         indptr = starts_ext
         col_deg = indptr[1:] - indptr[:-1]
         # element f = (k=row_f, c=col_f) pairs with CSC column row_f
@@ -427,7 +461,7 @@ def _mcl_iteration(state, *, p_pad: int, elem_pad: int, m: int, inflation: float
                 a_k, indptr, row_f, vals, offsets, p_clamped, p_pad, m,
             )
             key = torch.where(torch.arange(p_pad, device=dev) < p_clamped,
-                              pack_key_biased(c_bcast, r_gath, m), I32_MAX)
+                              _pack(c_bcast, r_gath, m, kcsc.dtype), sent)
     key_s, v_s = _sort_pair(key, v)
     # the stream length as pad_count: no real key is the sentinel
     _, _, v2, valid2, _ = merge_epilogue(key_s, v_s, m, m, key_s.shape[0])
@@ -439,31 +473,34 @@ def _mcl_iteration(state, *, p_pad: int, elem_pad: int, m: int, inflation: float
         if blk_cap:
             ok = ok & _blocks_within(survive, blk_cap)
         # the merged stream is sorted, so compaction in order keeps it sorted
-        k_next, vp_next = _to_front(survive, elem_pad, (key_s, I32_MAX), (v2r, 0.0))
+        k_next, vp_next = _to_front(survive, elem_pad, (key_s, sent), (v2r, 0.0))
         vp_next = torch.pow(vp_next, inflation)
         starts_next = _column_starts(k_next, m)
         colsum = _csc_colnorm_sorted(_col_keys(k_next, m), vp_next, m, starts_next)
-        v_next = torch.where(k_next != I32_MAX, vp_next / colsum, 0.0)
+        v_next = torch.where(k_next != sent, vp_next / colsum, 0.0)
     return k_next, v_next, starts_next, ok
 
 
 def _to_csc_state(rows, cols, vals, valid, *, p_pad: int, m: int):
-    """A masked COO stream as the loop's state: sorted biased
-    ``col·m + row`` keys with a sentinel tail, and values, cut or padded
-    to ``p_pad`` after the sort (the caller guarantees nnz ≤ p_pad)."""
-    key = torch.where(valid, pack_key_biased(cols, rows, m), I32_MAX)
+    """A masked COO stream as the loop's state: sorted ``col·m + row``
+    keys (:func:`key_dtype`) with a sentinel tail, and values, cut or
+    padded to ``p_pad`` after the sort (the caller guarantees
+    nnz ≤ p_pad)."""
+    dtype = key_dtype(m)
+    key = torch.where(valid, _pack(cols, rows, m, dtype), _sentinel(dtype))
     return _fit(*_sort_pair(key, torch.where(valid, vals, 0.0)), p_pad)
 
 
 def _from_csc_state(kcsc, vals, *, m: int, n: int, nnz_pad: int):
     """The loop's CSC state back to row-major compacted (rows, cols,
     vals) of length ``nnz_pad``; tail rows ``m``."""
-    valid = kcsc != I32_MAX
-    cols_o, rows_o = unpack_key_biased(kcsc, m)
-    krow = torch.where(valid, pack_key_biased(rows_o, cols_o, n), I32_MAX)
+    sent = _sentinel(kcsc.dtype)
+    valid = kcsc != sent
+    cols_o, rows_o = _unpack(kcsc, m)
+    krow = torch.where(valid, _pack(rows_o, cols_o, n, kcsc.dtype), sent)
     k_r, v_r = _fit(*_sort_pair(krow, vals), nnz_pad)
-    r2, c2 = unpack_key_biased(k_r, n)
-    valid_o = k_r != I32_MAX
+    r2, c2 = _unpack(k_r, n)
+    valid_o = k_r != sent
     return torch.where(valid_o, r2, m), torch.where(valid_o, c2, 0), torch.where(valid_o, v_r, 0.0)
 
 
@@ -522,7 +559,7 @@ def markov_cluster_device_fused(merged0: MergedCOO, inflation: float = 2.0, iter
     if not bool(ok):  # a budget did not hold: the exact stepwise chain
         return markov_cluster_device(merged0, inflation=inflation, iters=iters,
                                      prune_threshold=prune_threshold)
-    nnz = int((k_out != I32_MAX).sum())
+    nnz = int((k_out != _sentinel(k_out.dtype)).sum())
     nnz_pad = min(round_up_bucket(max(nnz, 1), min_size=1024), p_pad)
     r2, c2, v2 = _from_csc_state(k_out, v_out, m=m, n=n, nnz_pad=nnz_pad)
     valid2 = torch.arange(nnz_pad, device=r2.device) < nnz
@@ -553,9 +590,12 @@ def mcl_whole_traced(tplan, *, p_pad: int, nnz_pad: int, m: int, n_cols: int, it
     (:func:`_mcl_iteration`), and one row-major sort. Returns (rows
     [nnz_pad], cols, vals, nnz, ok): ``ok`` guards every budget, so the
     caller falls back to the exact stepwise chain when it is false.
-    Spans: ``mcl.square1``, then ``compact``, one ``mcl.iteration`` per
-    loop iteration (attribute ``iteration``: 2 for the first), and
-    ``mcl.finish``.
+    Spans: ``mcl.square1``, then ``compact``, ``mcl.loop`` (which names
+    the card for itself alone, so one pair of CUDA events times it and
+    the spans under it keep host time) over one ``mcl.iteration`` per loop
+    iteration (attribute ``iteration``: 2 for the first), and
+    ``mcl.finish``. Keys take :func:`key_dtype` of m from the first
+    compaction on.
 
     ``p_pads``: one product budget per loop iteration (P collapses as the
     flow converges; each is capped by ``p_pad`` and at least
@@ -584,21 +624,22 @@ def mcl_whole_traced(tplan, *, p_pad: int, nnz_pad: int, m: int, n_cols: int, it
             sq.rows, sq.cols, sq.vals, sq.valid, thr_root=thr_root, m=m, elem_pad=elem_pad,
             cap=cap1 if cap1 and sq.rows.shape[0] >= 16 * elem_pad else 0)
         kp, vp = _sort_pair(kp, vp)
-        valid1 = kp != I32_MAX
+        valid1 = kp != _sentinel(kp.dtype)
         vp = torch.where(valid1, torch.pow(torch.clamp(vp, min=0.0), inflation), 0.0)
         starts1 = _column_starts(kp, m)
         colsum = _csc_colnorm_sorted(_col_keys(kp, m), vp, m, starts1)
         state = (kp, torch.where(valid1, vp / colsum, 0.0), starts1, ok)
     # a cap schedule of the wrong length is dropped: it only saves time
     iter_caps = blk_caps[1:] if blk_caps and len(blk_caps) == iters + 1 else (0,) * iters
-    for i, (pp, cap) in enumerate(zip(p_pads, iter_caps)):
-        with span("mcl.iteration", iteration=i + 2):
-            state = _mcl_iteration(state, p_pad=max(min(pp, p_pad), elem_pad),
-                                   elem_pad=elem_pad, m=m, inflation=inflation,
-                                   threshold=threshold, blk_cap=cap, join=join)
+    with span("mcl.loop", device=kp.device, inherit=False):
+        for i, (pp, cap) in enumerate(zip(p_pads, iter_caps)):
+            with span("mcl.iteration", iteration=i + 2):
+                state = _mcl_iteration(state, p_pad=max(min(pp, p_pad), elem_pad),
+                                       elem_pad=elem_pad, m=m, inflation=inflation,
+                                       threshold=threshold, blk_cap=cap, join=join)
     with span("mcl.finish"):
         k_out, v_out, _, ok = state
-        valid = k_out != I32_MAX
+        valid = k_out != _sentinel(k_out.dtype)
         nnz = valid.sum(dtype=torch.int32)
         ok = ok & (nnz <= nnz_pad)
         r2, c2, v2 = _from_csc_state(k_out, v_out, m=m, n=n_cols, nnz_pad=nnz_pad)

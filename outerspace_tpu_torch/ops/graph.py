@@ -365,8 +365,9 @@ def markov_cluster(
 
     ``backend="torch"`` runs on ``device`` ("cpu" runs each kernel's
     plain version): the staged chain (:func:`mcl_prepare`,
-    :func:`mcl_run`) for ``expansion=2`` and n² < 2³², otherwise a host
-    loop over ``spgemm``, which stops early once the flow stops changing.
+    :func:`mcl_run`) for ``expansion=2`` at any n (its keys take int64
+    from n² ≥ 2³² on), otherwise a host loop over ``spgemm``, which stops
+    early once the flow stops changing.
     ``backend="scipy"`` is that host loop over scipy's product (the
     reference). ``report`` (staged chain only) receives the budgets the
     run used, whether it took the fast path, and its first squaring's
@@ -375,11 +376,10 @@ def markov_cluster(
     if backend not in ("torch", "scipy"):
         raise ValueError(f"unknown backend {backend!r}")
     coo = adj.to_coo() if not isinstance(adj, COO) else adj
-    n = coo.shape[0]
     flow = _mcl_setup(coo)
     if iters <= 0:
         return flow
-    if backend == "torch" and expansion == 2 and n * n < 2**32:
+    if backend == "torch" and expansion == 2:
         prep = mcl_prepare(flow, inflation=inflation, iters=iters,
                            prune_threshold=prune_threshold, device=device)
         out = mcl_run(prep)
@@ -418,15 +418,20 @@ def mcl_prepare(flow: CSR, inflation: float = 2.0, iters: int = 10,
     """Stage the chain on ``device``: the first squaring's host plan, for
     the pipeline the cost model picks for the flow (the windowed-gather
     plan for "gather", the tiled row parts otherwise), and the sizing
-    cache's key. Returns the ``prep`` dict :func:`mcl_run` takes."""
+    cache's key. Returns the ``prep`` dict :func:`mcl_run` takes.
+
+    Any square flow with n < 2³¹ is staged. From n² ≥ 2³² on both
+    plans cut the first squaring into row parts whose part-local keys
+    fit 32 bits (at n = 2¹⁹, at least 64 parts), and the rest of the
+    chain keys its streams in int64 (``ops.kernels.compact.key_dtype``)."""
     from outerspace_tpu_torch.ops.gather_pipeline import plan_spgemm_gather
     from outerspace_tpu_torch.ops.spgemm import plan_tiled_parts
     from outerspace_tpu_torch.sched.planner import choose_strategy
     from outerspace_tpu_torch.sched.sizing_cache import workload_key
 
     n = flow.shape[0]
-    if flow.shape[0] != flow.shape[1] or n * n >= 2**32:
-        raise ValueError(f"the staged MCL needs a square flow with n^2 < 2^32, got {flow.shape}")
+    if flow.shape[0] != flow.shape[1] or not 0 < n < 2**31:
+        raise ValueError(f"the staged MCL needs a square flow with 0 < n < 2^31, got {flow.shape}")
     if iters < 1:
         raise ValueError("mcl_prepare stages >= 1 iteration; iters=0 is a no-op")
     a_csc = flow.to_csc()
@@ -650,20 +655,24 @@ def mcl_run(prep: dict):
 
     A run is an ``mcl.run`` span (attribute ``fallback``) over the
     chain's stages, ``mcl.wait`` (the read of ``ok``) and, when taken,
-    ``mcl.fallback``; it counts ``mcl.runs``, and ``mcl.fallbacks`` when
-    ``ok`` was false."""
+    ``mcl.fallback``; it counts ``mcl.runs``, ``mcl.wide_runs`` when its
+    keys are int64 (n² ≥ 2³²), and ``mcl.fallbacks`` when ``ok`` was
+    false."""
     from outerspace_tpu_torch.ops.chain import (
         _stage1_squaring,
         inflate_device,
         markov_cluster_device_fused,
         mcl_whole_traced,
     )
+    from outerspace_tpu_torch.ops.kernels.compact import key_dtype
     from outerspace_tpu_torch.ops.spgemm import MergedCOO
     from outerspace_tpu_torch.sched import sizing_cache
 
     tplan, n = prep["tplan"], prep["n"]
     inflation, iters, threshold = prep["inflation"], prep["iters"], prep["threshold"]
     count("mcl.runs")
+    if key_dtype(n) == torch.int64:
+        count("mcl.wide_runs")
     with span("mcl.run") as run:
         if "p_pad" not in prep and not ("sizing_key" in prep and _from_cache(prep)):
             mcl_size(prep)

@@ -15,6 +15,10 @@ stream holds more than ``cap`` of them (the JAX package's blocked
 compaction is exact only under that bound). The kernel source is
 ``csrc/prune_compact.cu``: it reads 5 bytes a slot (value and valid) and
 the survivors' rows and columns.
+
+From m² ≥ 2³² on (:func:`key_dtype`) the keys pass 32 bits: they are
+the plain int64 ``col·m + row``, the fill INT64_MAX, and CUDA tensors
+take the kernel's 64-bit instantiation (:data:`KERNEL_64`).
 """
 
 from __future__ import annotations
@@ -26,18 +30,23 @@ import torch
 from outerspace_tpu_torch.runtime.build import CudaKernel, device_args, tensor_ptr
 
 _I32_MAX = 2**31 - 1
+_I64_MAX = 2**63 - 1
 # the survivor caps of the JAX package's blocked compaction are per block
 # of this many slots of a merged stream; the kernel's tile is one block
 CAP_BLOCK = 8192
 
-KERNEL = CudaKernel(
-    "prune_compact",
-    "prune_compact_launch",
-    [ctypes.c_void_p] * 4
-    + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    + [ctypes.c_void_p] * 4
-    + [ctypes.c_int, ctypes.c_void_p],
-)
+_ARGS = ([ctypes.c_void_p] * 4
+         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+         + [ctypes.c_void_p] * 4
+         + [ctypes.c_int, ctypes.c_void_p])
+KERNEL = CudaKernel("prune_compact", "prune_compact_launch", _ARGS)
+KERNEL_64 = CudaKernel("prune_compact", "prune_compact64_launch", _ARGS)
+
+
+def key_dtype(m: int, n: int | None = None) -> torch.dtype:
+    """The dtype of the MCL chain's keys over an m×n index space (n = m
+    by default): biased int32 while m·n < 2³², else int64."""
+    return torch.int64 if m * (m if n is None else n) >= 2**32 else torch.int32
 
 
 def _check(rows, cols, vals, valid, m: int, elem_pad: int, cap: int):
@@ -61,14 +70,16 @@ def _check(rows, cols, vals, valid, m: int, elem_pad: int, cap: int):
 def prune_compact(rows, cols, vals, valid, *, thr_root: float, m: int, elem_pad: int, cap: int):
     """The first squaring's merged stream (int32 rows and cols, float32
     vals, bool valid; K2's output) pruned and compacted into ``elem_pad``
-    slots. Returns (kp int32[elem_pad], vp float32[elem_pad], ok 0-d
-    bool): the survivors first, unsorted, then (INT32_MAX, 0). Where
+    slots. Returns (kp [elem_pad] of :func:`key_dtype` of m, vp
+    float32[elem_pad], ok 0-d bool): the survivors first, unsorted, then
+    (the dtype's maximum, 0). Where
     ``ok`` is false the caller falls back and ``kp``, ``vp`` are not
     used. ``cap`` 0 checks no per-block bound.
 
     CPU tensors run :func:`prune_compact_plain`; CUDA tensors launch
-    ``csrc/prune_compact.cu`` once, and need ``vals`` 16-byte and
-    ``valid`` 4-byte aligned (the kernel's vector loads)."""
+    ``csrc/prune_compact.cu`` once (:data:`KERNEL` or, for int64 keys,
+    :data:`KERNEL_64`), and need ``vals`` 16-byte and ``valid`` 4-byte
+    aligned (the kernel's vector loads)."""
     _check(rows, cols, vals, valid, m, elem_pad, cap)
     dev = rows.device
     if dev.type == "cpu":
@@ -79,11 +90,12 @@ def prune_compact(rows, cols, vals, valid, *, thr_root: float, m: int, elem_pad:
     if vals.data_ptr() % 16 or valid.data_ptr() % 4:
         raise ValueError("vals must start 16-byte and valid 4-byte aligned (the kernel's "
                          "vector loads)")
-    kp = torch.empty(elem_pad, dtype=torch.int32, device=dev)
+    wide = key_dtype(m) == torch.int64
+    kp = torch.empty(elem_pad, dtype=torch.int64 if wide else torch.int32, device=dev)
     vp = torch.empty(elem_pad, dtype=torch.float32, device=dev)
     ok = torch.empty((), dtype=torch.bool, device=dev)
     counts = torch.empty(2, dtype=torch.int32, device=dev)
-    KERNEL.launch(
+    (KERNEL_64 if wide else KERNEL).launch(
         tensor_ptr(rows), tensor_ptr(cols), tensor_ptr(vals), tensor_ptr(valid),
         rows.shape[0], float(thr_root), m, elem_pad, cap,
         tensor_ptr(kp), tensor_ptr(vp), tensor_ptr(ok), tensor_ptr(counts),
@@ -95,7 +107,8 @@ def prune_compact(rows, cols, vals, valid, *, thr_root: float, m: int, elem_pad:
 def prune_compact_plain(rows, cols, vals, valid, *, thr_root: float, m: int, elem_pad: int,
                         cap: int):
     """The same function in plain PyTorch, on any device: the survivors
-    in stream order (the first ``elem_pad`` of them), keys in int64."""
+    in stream order (the first ``elem_pad`` of them), keys computed in
+    int64."""
     v = torch.clamp(vals, min=0.0)
     idx = torch.nonzero(valid & (v > thr_root)).squeeze(1)
     ok = torch.tensor(idx.shape[0] <= elem_pad, device=rows.device)
@@ -103,8 +116,11 @@ def prune_compact_plain(rows, cols, vals, valid, *, thr_root: float, m: int, ele
         ok = ok & (torch.bincount(idx // CAP_BLOCK, minlength=1).max() <= cap)
     take = idx[:elem_pad]
     n = take.shape[0]
-    kp = torch.full((elem_pad,), _I32_MAX, dtype=torch.int32, device=rows.device)
+    wide = key_dtype(m) == torch.int64
+    kp = torch.full((elem_pad,), _I64_MAX if wide else _I32_MAX,
+                    dtype=torch.int64 if wide else torch.int32, device=rows.device)
     vp = torch.zeros(elem_pad, dtype=torch.float32, device=rows.device)
-    kp[:n] = ((cols[take].long() * m + rows[take].long()) % 2**32 - 2**31).to(torch.int32)
+    key = cols[take].long() * m + rows[take].long()
+    kp[:n] = key if wide else (key % 2**32 - 2**31).to(torch.int32)
     vp[:n] = v[take]
     return kp, vp, ok

@@ -16,14 +16,17 @@ nothing. A recording span
 - where it or a span above it named a CUDA device, records a pair of
   CUDA events on that device's current stream at entry and exit,
   resolved to device milliseconds only in :func:`spans` (after a
-  synchronise). Elsewhere a span's device time is its host time.
+  synchronise). Elsewhere a span's device time is its host time. A span
+  opened with ``inherit=False`` keeps its device to itself: the spans
+  under it take none from it.
 
 Two events time the stream between them, idle included: they read a
 span's kernel time only where the host queues the span's work well
 ahead of the card. So a span names a device only there (in the program,
-``compact``); a span whose host work paces the card (the first
-squaring's row parts under the profiler) names none, and its device
-time is left to the profiler's trace.
+``compact``, and ``mcl.loop`` with ``inherit=False``, so that the loop's
+own pair of events is its only one); a span whose host work paces the
+card (the first squaring's row parts under the profiler) names none, and
+its device time is left to the profiler's trace.
 
 Records sit in a bounded buffer (:data:`SPAN_BUFFER`; the oldest drop,
 counted under ``timer.spans_dropped``); the span stack is per thread.
@@ -103,11 +106,11 @@ _OFF = _Off()
 
 
 class _Span:
-    __slots__ = ("name", "attrs", "device", "id", "parent", "root", "start_ns", "end_ns",
-                 "events", "device_ms", "_rf")
+    __slots__ = ("name", "attrs", "device", "inherit", "passes", "id", "parent", "root",
+                 "start_ns", "end_ns", "events", "device_ms", "_rf")
 
-    def __init__(self, name: str, device, attrs: dict):
-        self.name, self.attrs, self.device = name, attrs, device
+    def __init__(self, name: str, device, attrs: dict, inherit: bool = True):
+        self.name, self.attrs, self.device, self.inherit = name, attrs, device, inherit
         self.events = self.device_ms = None
 
     def set(self, **attrs) -> None:
@@ -121,7 +124,9 @@ class _Span:
         self.parent = parent.id if parent is not None else None
         self.root = parent.root if parent is not None else self.id
         if self.device is None and parent is not None:
-            self.device = parent.device
+            self.device = parent.passes
+        # the device the spans under this one take
+        self.passes = self.device if self.inherit else None
         # the host times hold the annotation's on the trace's clock
         self.start_ns = time.time_ns()
         self._rf = record_function(self.name)
@@ -150,21 +155,23 @@ class _Span:
                 "device_ms": host_ms if self.device_ms is None else self.device_ms}
 
 
-def span(name: str, device=None, **attrs):
+def span(name: str, device=None, *, inherit: bool = True, **attrs):
     """A context manager that marks a stage or phase of the program under
     ``name`` while the profiler records (see the module's docstring), and
     does nothing otherwise. ``device``: a CUDA device gives the span and
     the spans under it device times by CUDA events (only where the host
     runs ahead of the card; see the module's docstring); a span that
-    names none takes its parent's. ``attrs``: the span's attributes (JSON values); the
-    span the ``with`` statement binds takes more through ``set``."""
+    names none takes its parent's. ``inherit=False``: the spans under
+    this one take no device from it (only this span records events).
+    ``attrs``: the span's attributes (JSON values); the span the
+    ``with`` statement binds takes more through ``set``."""
     if not _profiler_enabled():
         return _OFF
     if device is not None:
         device = torch.device(device)
         if device.type != "cuda":
             device = None
-    return _Span(name, device, attrs)
+    return _Span(name, device, attrs, inherit)
 
 
 def count(name: str, n: int = 1) -> None:

@@ -71,10 +71,10 @@ def test_traced_mcl_run_tree(tmp_path):
     run = roots[0]
     assert run["attrs"] == {"fallback": False}
     stages = [s for s in sp if s["parent"] == run["id"]]
-    assert [s["name"] for s in stages] == (["mcl.square1", "compact"]
-                                           + ["mcl.iteration"] * (ITERS - 1)
-                                           + ["mcl.finish", "mcl.wait"])
-    iterations = [s for s in stages if s["name"] == "mcl.iteration"]
+    assert [s["name"] for s in stages] == ["mcl.square1", "compact", "mcl.loop", "mcl.finish",
+                                           "mcl.wait"]
+    iterations = [s for s in sp if s["parent"] == stages[2]["id"]]
+    assert [s["name"] for s in iterations] == ["mcl.iteration"] * (ITERS - 1)
     assert [s["attrs"]["iteration"] for s in iterations] == list(range(2, ITERS + 1))
     for it in iterations:
         assert [s["name"] for s in sp if s["parent"] == it["id"]] == ["expand", "sort", "merge", "compact"]
@@ -230,6 +230,41 @@ def test_cuda_events_only_under_a_span_that_names_the_card(monkeypatch):
     assert sp["sort"]["device_ms"] == 1.0  # records 2 and 3
     assert sp["compact"]["device_ms"] == 3.0  # records 1 and 4
     for name in ("run", "expand", "merge"):
+        assert sp[name]["device_ms"] == sp[name]["host_ms"]
+
+
+def test_a_span_that_does_not_pass_on_its_device(monkeypatch):
+    class Event:  # as above: the order of the records as milliseconds
+        made, records = [], 0
+
+        def __init__(self, enable_timing):
+            Event.made.append(self)
+
+        def record(self, stream):
+            Event.records += 1
+            self.at = Event.records
+
+        def elapsed_time(self, end):
+            return float(end.at - self.at)
+
+    monkeypatch.setattr(timer, "_profiler_enabled", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    with timer.span("mcl.loop", device="cuda:0", inherit=False):
+        with timer.span("mcl.iteration", iteration=2):
+            with timer.span("sort"):
+                pass
+            with timer.span("compact", device="cuda:0"):  # names the card itself
+                with timer.span("merge"):
+                    pass
+    assert len(Event.made) == 6  # the loop's pair, compact's and its merge's
+    sp = {s["name"]: s for s in timer.spans()}
+    assert sp["mcl.loop"]["device_ms"] == 5.0  # records 1 and 6
+    assert sp["compact"]["device_ms"] == 3.0  # records 2 and 5
+    assert sp["merge"]["device_ms"] == 1.0  # records 3 and 4
+    assert sp["mcl.iteration"]["attrs"] == {"iteration": 2}
+    for name in ("mcl.iteration", "sort"):
         assert sp[name]["device_ms"] == sp[name]["host_ms"]
 
 
