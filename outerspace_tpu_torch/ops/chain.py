@@ -37,7 +37,9 @@ products run K1 / K3 (the first squaring) and K2 (every merge, and the
 per-column sums of the column normalisation with ``n_cols=1``). On the
 card the prune and compaction after the staged chain's first squaring is
 one kernel of its own (``ops/kernels/compact.py``), since that step
-streams the largest stream of the run. Where the JAX code works in
+streams the largest stream of the run, and so is each loop squaring's
+gather expand (``ops/kernels/loop_expand.py``), which fills hundreds of
+millions of product slots on a large flow. Where the JAX code works in
 uint32, the port carries the values in int64, which is exact below 2³²;
 the keys that come out are bit-equal to the JAX package's.
 
@@ -54,7 +56,16 @@ import numpy as np
 import torch
 
 from outerspace_tpu_torch.ops.gather_pipeline import GatherPipelinePlan, spgemm_gather_padded
-from outerspace_tpu_torch.ops.kernels.compact import CAP_BLOCK, key_dtype, prune_compact
+from outerspace_tpu_torch.ops.kernels.compact import (
+    CAP_BLOCK,
+    _pack,
+    _sentinel,
+    _ukey,
+    _unpack,
+    key_dtype,
+    prune_compact,
+)
+from outerspace_tpu_torch.ops.kernels.loop_expand import loop_expand
 from outerspace_tpu_torch.ops.spgemm import (
     I32_MAX,
     KEY_BIAS,
@@ -63,48 +74,21 @@ from outerspace_tpu_torch.ops.spgemm import (
     expand_partial_products,
     merge_biased_keys,
     merge_epilogue,
-    pack_key_biased,
     spgemm_padded_tiled_parts,
 )
 from outerspace_tpu_torch.ops.symbolic import round_up_bucket
 from outerspace_tpu_torch.perf.timer import span
 
 _U32 = 2**32
-I64_MAX = 2**63 - 1
 # the fused chain's product budget: the first squaring's P times this
 P_HEADROOM = 1.5
-
-
-def _sentinel(dtype: torch.dtype) -> int:
-    """The empty slot's key in a key stream of ``dtype``."""
-    return I64_MAX if dtype == torch.int64 else I32_MAX
-
-
-def _pack(major: torch.Tensor, minor: torch.Tensor, n_minor: int, dtype: torch.dtype):
-    """The key ``major·n_minor + minor`` in ``dtype``: biased int32
-    (:func:`pack_key_biased`) or plain int64."""
-    if dtype == torch.int64:
-        return major.long() * n_minor + minor.long()
-    return pack_key_biased(major, minor, n_minor)
-
-
-def _unpack(key: torch.Tensor, n_minor: int):
-    """Inverse of :func:`_pack`: (major, minor) as int32."""
-    ku = _ukey(key)
-    return (ku // n_minor).to(torch.int32), (ku % n_minor).to(torch.int32)
-
-
-def _ukey(key: torch.Tensor) -> torch.Tensor:
-    """The unsigned value (int64) of the chain's keys: biased int32 keys
-    shifted by 2³¹, int64 keys as they are."""
-    return key if key.dtype == torch.int64 else key.long() - KEY_BIAS
 
 
 def _col_keys(kcsc: torch.Tensor, m: int) -> torch.Tensor:
     """The biased column keys ``col − 2³¹`` (int32) of a CSC stream's
     keys; an int64 stream's empty slots take column m."""
     if kcsc.dtype == torch.int64:
-        col = torch.where(kcsc != I64_MAX, kcsc // m, m)
+        col = torch.where(kcsc != _sentinel(kcsc.dtype), kcsc // m, m)
         return (col + KEY_BIAS).to(torch.int32)
     return (_ukey(kcsc) // m + KEY_BIAS).to(torch.int32)
 
@@ -349,8 +333,8 @@ def _fill_pack_ok(elem_pad: int, m: int) -> bool:
 
 def loop_join(elem_pad: int, m: int, device: torch.device) -> str:
     """The join "auto" takes: gather on a CUDA device, where it is the
-    faster one (2.98 against 3.41-3.44 ms over the three loop iterations
-    of mcl_rmat14_4iter on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md);
+    faster one (1.49 against 3.46 ms over the three loop iterations of
+    mcl_rmat14_4iter on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md);
     elsewhere the JAX package's rule, fill where its keys fit."""
     if device.type != "cuda" and _fill_pack_ok(elem_pad, m):
         return "fill"
@@ -428,8 +412,9 @@ def _mcl_iteration(state, *, p_pad: int, elem_pad: int, m: int, inflation: float
     package's float32 cross-checks), the survivors within ``elem_pad``
     and, with ``blk_cap``, within ``blk_cap`` per ``CAP_BLOCK``-slot
     block of the merged stream (the JAX package's compaction bound).
-    ``join``: "gather" reads each product's (row, value) by index, "fill"
-    by :func:`_loop_expand_fill`; "auto" as :func:`loop_join` picks."""
+    ``join``: "gather" reads each product's (row, value) by index
+    (:func:`loop_expand`: one kernel on the card), "fill" by
+    :func:`_loop_expand_fill`; "auto" as :func:`loop_join` picks."""
     if join not in ("auto", "fill", "gather"):
         raise ValueError(f"join={join!r}: expected 'auto', 'fill', or 'gather'")
     kcsc, vals, starts_ext, ok = state
@@ -456,12 +441,7 @@ def _mcl_iteration(state, *, p_pad: int, elem_pad: int, m: int, inflation: float
             key, v = _loop_expand_fill(kcsc, vals, col_f, valid_f, indptr[a_k.long()], offsets,
                                        p_clamped, p_pad=p_pad, elem_pad=elem_pad, m=m)
         else:
-            c_bcast, r_gath, v = expand_partial_products(
-                torch.where(valid_f, col_f, m), torch.where(valid_f, vals, 0.0),
-                a_k, indptr, row_f, vals, offsets, p_clamped, p_pad, m,
-            )
-            key = torch.where(torch.arange(p_pad, device=dev) < p_clamped,
-                              _pack(c_bcast, r_gath, m, kcsc.dtype), sent)
+            key, v = loop_expand(kcsc, vals, indptr, offsets, p_clamped, p_pad=p_pad, m=m)
     key_s, v_s = _sort_pair(key, v)
     # the stream length as pad_count: no real key is the sentinel
     _, _, v2, valid2, _ = merge_epilogue(key_s, v_s, m, m, key_s.shape[0])

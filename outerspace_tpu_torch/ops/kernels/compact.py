@@ -18,7 +18,9 @@ the survivors' rows and columns.
 
 From m² ≥ 2³² on (:func:`key_dtype`) the keys pass 32 bits: they are
 the plain int64 ``col·m + row``, the fill INT64_MAX, and CUDA tensors
-take the kernel's 64-bit instantiation (:data:`KERNEL_64`).
+take the kernel's 64-bit instantiation (:data:`KERNEL_64`). The chain's
+key format lives here, for the chain and the loop expand alike:
+:func:`key_dtype`, :func:`_sentinel`, :func:`_pack`, :func:`_unpack`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import ctypes
 
 import torch
 
+from outerspace_tpu_torch.ops.spgemm import KEY_BIAS, pack_key_biased
 from outerspace_tpu_torch.runtime.build import CudaKernel, device_args, tensor_ptr
 
 _I32_MAX = 2**31 - 1
@@ -47,6 +50,32 @@ def key_dtype(m: int, n: int | None = None) -> torch.dtype:
     """The dtype of the MCL chain's keys over an m×n index space (n = m
     by default): biased int32 while m·n < 2³², else int64."""
     return torch.int64 if m * (m if n is None else n) >= 2**32 else torch.int32
+
+
+def _sentinel(dtype: torch.dtype) -> int:
+    """The empty slot's key in a key stream of ``dtype``."""
+    return _I64_MAX if dtype == torch.int64 else _I32_MAX
+
+
+def _pack(major: torch.Tensor, minor: torch.Tensor, n_minor: int, dtype: torch.dtype):
+    """The key ``major·n_minor + minor`` in ``dtype``: biased int32
+    (:func:`~outerspace_tpu_torch.ops.spgemm.pack_key_biased`) or plain
+    int64."""
+    if dtype == torch.int64:
+        return major.long() * n_minor + minor.long()
+    return pack_key_biased(major, minor, n_minor)
+
+
+def _ukey(key: torch.Tensor) -> torch.Tensor:
+    """The unsigned value (int64) of the chain's keys: biased int32 keys
+    shifted by 2³¹, int64 keys as they are."""
+    return key if key.dtype == torch.int64 else key.long() - KEY_BIAS
+
+
+def _unpack(key: torch.Tensor, n_minor: int):
+    """Inverse of :func:`_pack`: (major, minor) as int32."""
+    ku = _ukey(key)
+    return (ku // n_minor).to(torch.int32), (ku % n_minor).to(torch.int32)
 
 
 def _check(rows, cols, vals, valid, m: int, elem_pad: int, cap: int):
@@ -116,11 +145,9 @@ def prune_compact_plain(rows, cols, vals, valid, *, thr_root: float, m: int, ele
         ok = ok & (torch.bincount(idx // CAP_BLOCK, minlength=1).max() <= cap)
     take = idx[:elem_pad]
     n = take.shape[0]
-    wide = key_dtype(m) == torch.int64
-    kp = torch.full((elem_pad,), _I64_MAX if wide else _I32_MAX,
-                    dtype=torch.int64 if wide else torch.int32, device=rows.device)
+    dtype = key_dtype(m)
+    kp = torch.full((elem_pad,), _sentinel(dtype), dtype=dtype, device=rows.device)
     vp = torch.zeros(elem_pad, dtype=torch.float32, device=rows.device)
-    key = cols[take].long() * m + rows[take].long()
-    kp[:n] = key if wide else (key % 2**32 - 2**31).to(torch.int32)
+    kp[:n] = _pack(cols[take], rows[take], m, dtype)
     vp[:n] = v[take]
     return kp, vp, ok

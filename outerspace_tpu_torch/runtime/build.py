@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("gexpand", "scan", "expand", "spmm", "prune_compact")
+KERNEL_SOURCES = ("gexpand", "scan", "expand", "spmm", "prune_compact", "loop_expand")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 HOST_SOURCES = ("gplan", "mtx_reader", "ref_spgemm", "perfsim")
 

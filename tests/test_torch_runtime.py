@@ -8,11 +8,11 @@ import stat
 
 import pytest
 
-from outerspace_tpu_torch.ops.kernels import compact, expand, gexpand, scan, spmm
+from outerspace_tpu_torch.ops.kernels import compact, expand, gexpand, loop_expand, scan, spmm
 from outerspace_tpu_torch.runtime import build
 
 KERNELS = (gexpand.KERNEL, scan.KERNEL, expand.KERNEL_PACKED, expand.KERNEL_COORDS, spmm.KERNEL,
-           compact.KERNEL)
+           compact.KERNEL, loop_expand.KERNEL, loop_expand.KERNEL_64)
 
 
 def test_nvcc_flags_target_hopper_without_torch_headers():
