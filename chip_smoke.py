@@ -644,20 +644,20 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
 
     # the sweep's P_i and nnz_i, caught from the first mcl_size call
     sweeps = []
-    real_sweep = graph._host_mcl_sizing_full
+    real_sweep = graph._host_mcl_sizing
 
     def sweep_caught(*args, **kw):
         sweeps.append(real_sweep(*args, **kw))
         return sweeps[-1]
 
     size_ms = []
-    graph._host_mcl_sizing_full = sweep_caught
+    graph._host_mcl_sizing = sweep_caught
     try:
         for _ in range(3):
             p = unsized()
             size_ms.append(timed(lambda: graph.mcl_size(p))[0])
     finally:
-        graph._host_mcl_sizing_full = real_sweep
+        graph._host_mcl_sizing = real_sweep
     sweep = sweeps[0]
     cold_ms = []
     for _ in range(3):
@@ -728,15 +728,14 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     for name, fn in (("markov_cluster_device_fused", chain.markov_cluster_device_fused),
                      ("markov_cluster_device", chain.markov_cluster_device)):
         check(fn(flow1, iters=MCL_ITERS - 1), f"{name} from the stage-1 flow")
-    forced = unsized(**(budgets | {"elem_pad": 4096, "p_pads": None, "blk_caps": None}))
+    forced = unsized(**(budgets | {"elem_pad": 4096, "p_pads": None}))
     check(graph.mcl_run(forced), "mcl_run with elem_pad 4096")
     if forced["ran_with"]["elem_pad"] != 4096 or forced["elem_pad"] != 8192:
         raise RuntimeError("the forced run did not fall back and double its budgets")
     for k in kernels.values():
         k.launches = 0
-    # the sized budgets (the caps were set for the gather plan's stream)
-    tiled = unsized(**(budgets | {"blk_caps": None}),
-                    tplan=plan_tiled_parts(flow.to_csc(), flow, device=dev))
+    # the sized budgets
+    tiled = unsized(**budgets, tplan=plan_tiled_parts(flow.to_csc(), flow, device=dev))
     check(graph.mcl_run(tiled), "mcl_run on a tiled first squaring")
     torch.cuda.synchronize()
     tiled_counts = {name: k.launches for name, k in kernels.items()}
@@ -841,24 +840,21 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
           f"scipy's MCL {scipy_ms:.3f} ({scipy_ms / med(warm_ms):.2f}x the warm run's time)")
     mcl_spin = _spin_cycles(torch, 200.0)
 
-    def whole(join, iters=MCL_ITERS - 1):
-        p_pads, caps = budgets["p_pads"], budgets["blk_caps"]
+    def whole(iters=MCL_ITERS - 1):
+        p_pads = budgets["p_pads"]
         return lambda: chain.mcl_whole_traced(
             prep["tplan"], p_pad=budgets["p_pad"], nnz_pad=budgets["nnz_pad"], m=n, n_cols=n,
             iters=iters, inflation=2.0, threshold=1e-4, elem_pad=budgets["elem_pad"],
-            p_pads=tuple(p_pads[:iters]) if p_pads else None,
-            blk_caps=tuple(caps[:iters + 1]) if caps else None, join=join)
+            p_pads=tuple(p_pads[:iters]) if p_pads else None)
 
-    joins = {j: _device_ms(torch, whole(j), mcl_spin, reps=3) for j in ("fill", "gather", "auto")}
+    run_ms = _device_ms(torch, whole(), mcl_spin, reps=3)
     first = _device_ms(torch, lambda: chain._stage1_squaring(prep["tplan"]), mcl_spin, reps=3)
-    no_loop = _device_ms(torch, whole("auto", iters=0), mcl_spin, reps=3)
-    print("mcl_rmat14_4iter one warm run's device ms by join (device-only CUDA events, median of "
-          "3): " + ", ".join(f"{j} {ms:.4f}" for j, ms in joins.items())
-          + f" (auto takes {chain.loop_join(budgets['elem_pad'], n, dev)})"
-          + f"; split: the first squaring {first:.4f}, its prune, compaction and normalisation "
-          f"with the final sort {no_loop - first:.4f} (a run with no loop iteration, "
-          f"{no_loop:.4f}, less the squaring), the {MCL_ITERS - 1} loop iterations "
-          f"{joins['fill'] - no_loop:.4f} (fill) / {joins['gather'] - no_loop:.4f} (gather)")
+    no_loop = _device_ms(torch, whole(iters=0), mcl_spin, reps=3)
+    print(f"mcl_rmat14_4iter one warm run's device ms (device-only CUDA events, median of 3): "
+          f"{run_ms:.4f}; split: the first squaring {first:.4f}, its prune, compaction and "
+          f"normalisation with the final sort {no_loop - first:.4f} (a run with no loop "
+          f"iteration, {no_loop:.4f}, less the squaring), the {MCL_ITERS - 1} loop iterations "
+          f"{run_ms - no_loop:.4f}")
     _phase("mcl timing", t1)
     # the profiler's trace of a warm run is taken after the other phases'
     # traces: after a trace this large, the next traces in the process
@@ -900,27 +896,21 @@ def _prune_compact_phase(torch, np, dev) -> dict:
     n, slots = prep["n"], sq.rows.shape[0]
     # the budgets as mcl_whole_traced applies them
     elem_pad = min(max(prep["elem_pad"], prep["nnz_pad"]), prep["p_pad"])
-    caps = prep.get("blk_caps")
-    cap = caps[0] if caps and caps[0] and slots >= 16 * elem_pad else 0
     thr_root = chain._f32(threshold ** (1.0 / inflation))
     args = (sq.rows, sq.cols, sq.vals, sq.valid)
-    kw = dict(thr_root=thr_root, m=n, elem_pad=elem_pad, cap=cap)
+    kw = dict(thr_root=thr_root, m=n, elem_pad=elem_pad)
     survivors = int((sq.valid & (sq.vals > thr_root)).sum())
     print(f"rmat15_ef16 first squaring: {slots:,} merged slots, {int(sq.nnz):,} valid, "
-          f"{survivors:,} survive the prune (v > {thr_root!r}); elem_pad {elem_pad:,}, cap {cap}")
+          f"{survivors:,} survive the prune (v > {thr_root!r}); elem_pad {elem_pad:,}")
 
     def before():
         """The chain's compaction before the kernel, as mcl_whole_traced
-        ran it: the prune and the keys over every slot, then the blocked
-        compaction with a cap, else a compaction in stream order, and a
-        sort."""
+        ran it: the prune and the keys over every slot, then a compaction
+        in stream order and a sort."""
         v_raw = torch.where(sq.valid, torch.clamp(sq.vals, min=0.0), 0.0)
         survive = sq.valid & (v_raw > thr_root)
         kcsc = torch.where(survive, pack_key_biased(sq.cols, sq.rows, n), I32_MAX)
         ok = survive.sum() <= elem_pad
-        if cap:
-            kp, vp, ok_cap = chain.compact_masked_stream(kcsc, v_raw, elem_pad, cap=cap)
-            return kp, vp, ok & ok_cap
         return (*chain._sort_pair(*chain._to_front(survive, elem_pad, (kcsc, I32_MAX),
                                                    (v_raw, 0.0))), ok)
 
@@ -1096,7 +1086,7 @@ def _wide_phase(torch, np, dev, kernels) -> dict:
                if "prune_compact_64" in prof else "profiler not measured")
     pc_bound, pc_by = _bound(slots * 5 + survivors * 20, 0)
     print(f"prune_compact_64 on lfr19_k20_mu03's first squaring ({slots:,} slots, {survivors:,} "
-          f"survive, elem_pad {kw['elem_pad']:,}, cap {kw['cap']}): == plain bit for bit; "
+          f"survive, elem_pad {kw['elem_pad']:,}): == plain bit for bit; "
           f"{pc_ms:.4f} ms device-only events, {pc_host_ms:.4f} ms with the host's launch, "
           f"{pc_prof}; {100 * pc_bound / pc_ms:.1f}% of its "
           f"{pc_bound:.4f} ms bound (5 B a slot, 20 B a survivor, at "

@@ -52,8 +52,10 @@ not exact. The process exits 0 when every record is exact and none
 failed, 1 otherwise, 2 on a bad option.
 
 ``--small`` runs the same generators at CPU test scale (``--device
-cpu`` runs each kernel's plain version). ``--only`` runs a subset, in
-the suite's order.
+cpu`` runs each kernel's plain version, on one intra-op thread, as do
+the ranks it spawns: test-scale work gains nothing from more, and a
+process whose threads outnumber the free cores spins them against each
+other). ``--only`` runs a subset, in the suite's order.
 """
 
 from __future__ import annotations
@@ -628,9 +630,15 @@ def run_args(args) -> int:
               file=sys.stderr)
         return 2
     stdout = sys.stdout
-    # the headline is the one line on the standard output
-    with contextlib.redirect_stdout(sys.stderr):
-        _, records = run_suite(names, args.device, args.small, out=stdout, err=sys.stderr)
+    threads = torch.get_num_threads()
+    if args.small and torch.device(args.device).type == "cpu":
+        torch.set_num_threads(1)
+    try:
+        # the headline is the one line on the standard output
+        with contextlib.redirect_stdout(sys.stderr):
+            _, records = run_suite(names, args.device, args.small, out=stdout, err=sys.stderr)
+    finally:
+        torch.set_num_threads(threads)
     return 0 if passed(records) else 1
 
 

@@ -2,10 +2,10 @@
 // Hopper (sm_90a).
 //
 // Replaces no Pallas kernel. The JAX package prunes and compacts this
-// stream with XLA ops in its `mcl_whole_traced` (the prune, then
-// `compact_masked_stream` or `_to_front` and a sort), and the port did the
-// same in plain PyTorch: some 25 launches, each over the whole merged
-// stream, several in int64. This kernel does that step in one pass. For
+// stream with XLA ops in its `mcl_whole_traced` (the prune, then a
+// compaction and a sort), and the port did the same in plain PyTorch:
+// some 25 launches, each over the whole merged stream, several in int64.
+// This kernel does that step in one pass. For
 // each slot i of the first squaring's merged stream (rows, cols, vals,
 // valid; L slots), the slot survives iff valid[i] and
 // max(vals[i], 0) > thr, thr being the float32 t^(1/p) of the prune
@@ -21,9 +21,9 @@
 // least time is 5 B a slot, 503M x 5 B / 3.35 TB/s = 0.75 ms there, plus
 // the survivors' reads and the elem_pad output slots written once.
 //
-// Design: one block of 256 threads per tile of CAP_BLOCK = 8,192 slots,
-// aligned at multiples of 8,192. A thread takes 8 groups of 4 slots,
-// group j at tile word j*256 + t, so each of a warp's loads covers one
+// Design: one block of 256 threads per tile of 8,192 slots, aligned at
+// multiples of 8,192. A thread takes 8 groups of 4 slots, group j at
+// tile word j*256 + t, so each of a warp's loads covers one
 // contiguous span: vals as one float4 and valid as one 4-byte word per
 // group (the wrapper holds vals 16-byte and valid 4-byte aligned; scalar
 // loads only at the stream's ragged end), all issued before any is used,
@@ -31,22 +31,15 @@
 // after one __syncthreads_or. Otherwise a warp scan of the threads'
 // survivor counts and one scan over the 8 warp totals give the tile's
 // count and each thread's offset in it; thread 0 takes the tile's place
-// in the output by one atomicAdd on a global counter and records the
-// tile's count by one atomicMax, so the same block count is both the
-// tile's share of the survivors and its cap check.
+// in the output by one atomicAdd on a global counter.
 //
 // Why the write order is free: the caller sorts the elem_pad slots by key
 // next. K2 merged the stream, so the survivors' keys are unique and the
 // sorted (kp, vp) are bit-identical to those of a compaction in stream
 // order whenever ok holds; when ok is false the caller discards them and
 // runs the exact fallback. Survivors whose place is at or past elem_pad
-// are counted and not written.
-//
-// ok keeps the JAX package's cap semantics: ok = (survivors <= elem_pad)
-// and, when cap > 0, (the most survivors any CAP_BLOCK-slot block holds
-// <= cap), the bound under which the JAX package's blocked compaction is
-// exact, so the same inputs take the fast path or the fallback in both
-// packages.
+// are counted and not written, so ok = (survivors <= elem_pad): every
+// survivor was kept.
 //
 // The 64-bit instantiation (prune_compact64_launch; kernels
 // prune_compact_kernel_wide, prune_compact_tail_wide) writes plain int64
@@ -64,7 +57,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroups = 8;                          // groups of 4 slots per thread
-constexpr int kTile = kThreads * kGroups * 4;       // 8,192 slots: CAP_BLOCK
+constexpr int kTile = kThreads * kGroups * 4;       // 8,192 slots
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTailThreads = 256;
 constexpr int kTailBlocks = 1024;
@@ -153,7 +146,6 @@ prune_compact_body(const int* __restrict__ rows, const int* __restrict__ cols,
       total += x;
     }
     s_base = atomicAdd(counts, static_cast<unsigned>(total));
-    atomicMax(counts + 1, static_cast<unsigned>(total));
   }
   __syncthreads();
   if (!c) return;
@@ -192,10 +184,10 @@ prune_compact_kernel_wide(const int* __restrict__ rows, const int* __restrict__ 
   prune_compact_body<long long>(rows, cols, vals, valid, n, thr, m, elem_pad, kp, vp, counts);
 }
 
-// The slots past the survivors get (the sentinel, 0); ok from the counts.
+// The slots past the survivors get (the sentinel, 0); ok from the count.
 template <typename K>
 __device__ __forceinline__ void
-prune_compact_tail_body(const unsigned* __restrict__ counts, unsigned elem_pad, unsigned cap,
+prune_compact_tail_body(const unsigned* __restrict__ counts, unsigned elem_pad,
                         K* __restrict__ kp, float* __restrict__ vp,
                         unsigned char* __restrict__ ok) {
   const unsigned total = counts[0];
@@ -207,37 +199,37 @@ prune_compact_tail_body(const unsigned* __restrict__ counts, unsigned elem_pad, 
     vp[i] = 0.0f;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0)
-    *ok = total <= elem_pad && (cap == 0 || counts[1] <= cap);
+    *ok = total <= elem_pad;
 }
 
 __global__ void __launch_bounds__(kTailThreads)
-prune_compact_tail(const unsigned* __restrict__ counts, unsigned elem_pad, unsigned cap,
+prune_compact_tail(const unsigned* __restrict__ counts, unsigned elem_pad,
                    int* __restrict__ kp, float* __restrict__ vp,
                    unsigned char* __restrict__ ok) {
-  prune_compact_tail_body<int>(counts, elem_pad, cap, kp, vp, ok);
+  prune_compact_tail_body<int>(counts, elem_pad, kp, vp, ok);
 }
 
 __global__ void __launch_bounds__(kTailThreads)
-prune_compact_tail_wide(const unsigned* __restrict__ counts, unsigned elem_pad, unsigned cap,
+prune_compact_tail_wide(const unsigned* __restrict__ counts, unsigned elem_pad,
                         long long* __restrict__ kp, float* __restrict__ vp,
                         unsigned char* __restrict__ ok) {
-  prune_compact_tail_body<long long>(counts, elem_pad, cap, kp, vp, ok);
+  prune_compact_tail_body<long long>(counts, elem_pad, kp, vp, ok);
 }
 
 // Both passes of one instantiation.
 template <typename K>
 int launch(const int* rows, const int* cols, const float* vals, const unsigned char* valid,
-           int n, float thr, int m, int elem_pad, int cap, K* kp, float* vp,
+           int n, float thr, int m, int elem_pad, K* kp, float* vp,
            unsigned char* ok, unsigned* counts, int device, void* stream) {
   constexpr bool kWide = sizeof(K) == 8;
-  if (n < 0 || m <= 0 || elem_pad < 0 || cap < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 0 || m <= 0 || elem_pad < 0) return static_cast<int>(cudaErrorInvalidValue);
   // the vector loads: vals as float4, valid as 4-byte words
   if (reinterpret_cast<std::uintptr_t>(vals) % 16 || reinterpret_cast<std::uintptr_t>(valid) % 4)
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(counts, 0, 2 * sizeof(unsigned), st);
+  err = cudaMemsetAsync(counts, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (static_cast<long long>(n) + kTile - 1) / kTile;
   if (tiles > 0) {
@@ -257,34 +249,33 @@ int launch(const int* rows, const int* cols, const float* vals, const unsigned c
   const int blocks = static_cast<int>(want < 1 ? 1 : (want > kTailBlocks ? kTailBlocks : want));
   if constexpr (kWide)
     prune_compact_tail_wide<<<blocks, kTailThreads, 0, st>>>(
-        counts, static_cast<unsigned>(elem_pad), static_cast<unsigned>(cap), kp, vp, ok);
+        counts, static_cast<unsigned>(elem_pad), kp, vp, ok);
   else
     prune_compact_tail<<<blocks, kTailThreads, 0, st>>>(
-        counts, static_cast<unsigned>(elem_pad), static_cast<unsigned>(cap), kp, vp, ok);
+        counts, static_cast<unsigned>(elem_pad), kp, vp, ok);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// counts: two 32-bit words of scratch (the survivors, the most in a tile),
-// zeroed here on the stream before the pass.
+// counts: one 32-bit word of scratch (the survivors), zeroed here on the
+// stream before the pass.
 extern "C" int prune_compact_launch(const int* rows, const int* cols, const float* vals,
                                     const unsigned char* valid, int n, float thr, int m,
-                                    int elem_pad, int cap, int* kp, float* vp,
-                                    unsigned char* ok, unsigned* counts, int device,
-                                    void* stream) {
-  return launch<int>(rows, cols, vals, valid, n, thr, m, elem_pad, cap, kp, vp, ok, counts,
-                     device, stream);
+                                    int elem_pad, int* kp, float* vp, unsigned char* ok,
+                                    unsigned* counts, int device, void* stream) {
+  return launch<int>(rows, cols, vals, valid, n, thr, m, elem_pad, kp, vp, ok, counts, device,
+                     stream);
 }
 
 // The 64-bit instantiation: the same arguments, kp as int64.
 extern "C" int prune_compact64_launch(const int* rows, const int* cols, const float* vals,
                                       const unsigned char* valid, int n, float thr, int m,
-                                      int elem_pad, int cap, long long* kp, float* vp,
+                                      int elem_pad, long long* kp, float* vp,
                                       unsigned char* ok, unsigned* counts, int device,
                                       void* stream) {
-  return launch<long long>(rows, cols, vals, valid, n, thr, m, elem_pad, cap, kp, vp, ok,
-                           counts, device, stream);
+  return launch<long long>(rows, cols, vals, valid, n, thr, m, elem_pad, kp, vp, ok, counts,
+                           device, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -57,7 +57,6 @@ import torch
 
 from outerspace_tpu_torch.ops.gather_pipeline import GatherPipelinePlan, spgemm_gather_padded
 from outerspace_tpu_torch.ops.kernels.compact import (
-    CAP_BLOCK,
     _pack,
     _sentinel,
     _ukey,
@@ -79,7 +78,6 @@ from outerspace_tpu_torch.ops.spgemm import (
 from outerspace_tpu_torch.ops.symbolic import round_up_bucket
 from outerspace_tpu_torch.perf.timer import span
 
-_U32 = 2**32
 # the fused chain's product budget: the first squaring's P times this
 P_HEADROOM = 1.5
 
@@ -274,34 +272,6 @@ def _column_starts(kstream: torch.Tensor, m: int) -> torch.Tensor:
     return ranks_in_sorted(kstream, _pack(c, torch.zeros_like(c), m, kstream.dtype))
 
 
-def _blocks_within(keep: torch.Tensor, cap: int) -> torch.Tensor:
-    """Whether every ``CAP_BLOCK``-slot block of ``keep`` holds ≤ ``cap``
-    kept slots (a 0-d bool on the stream's device)."""
-    nb = -(-keep.shape[0] // CAP_BLOCK)
-    padded = torch.nn.functional.pad(keep.to(torch.int32), (0, nb * CAP_BLOCK - keep.shape[0]))
-    return padded.view(nb, CAP_BLOCK).sum(1).max() <= cap
-
-
-def compact_masked_stream(key, val, out_len: int, *, cap: int):
-    """The first ``out_len`` slots of the masked ``(key, val)`` stream in
-    ascending key order (the dtype's sentinel = masked; real keys unique,
-    masked slots' values 0), and ``ok``: whether every ``CAP_BLOCK``-slot
-    block holds ≤ ``cap`` survivors, the bound under which the JAX
-    package's blocked sort is exact (caps come from the host sizing
-    sweep).
-
-    Here the survivors are front-compacted (at most ``cap`` per block
-    while ``ok`` holds, so ⌈L/blk⌉·cap slots keep them all) and only
-    those are sorted; where ``ok`` is false the result is not used."""
-    L = key.shape[0]
-    sent = _sentinel(key.dtype)
-    keep = key != sent
-    ok = _blocks_within(keep, cap)
-    size = min(L, -(-L // CAP_BLOCK) * cap)
-    k, v = _sort_pair(*_to_front(keep, size, (key, sent), (val, 0.0)))
-    return (*_fit(k, v, out_len), ok)
-
-
 def _csc_colnorm_sorted(kcol, vp, m: int, starts_ext):
     """Per-column totals of a stream whose column keys ``kcol`` (biased
     ``col − 2³¹``) are sorted ascending, broadcast back to every slot.
@@ -324,76 +294,8 @@ def _csc_colnorm_sorted(kcol, vp, m: int, starts_ext):
 # --------------------------------------------------------------------------
 
 
-def _fill_pack_ok(elem_pad: int, m: int) -> bool:
-    """Whether the fill join's keys fit 32 bits: product keys
-    ``j·(m+1) + c + 1`` (j < elem_pad, c < m), table keys ``q·(m+1)`` and
-    the pin key, with headroom."""
-    return elem_pad * (m + 1) < _U32 - 4 * (m + 1)
-
-
-def loop_join(elem_pad: int, m: int, device: torch.device) -> str:
-    """The join "auto" takes: gather on a CUDA device, where it is the
-    faster one (1.49 against 3.46 ms over the three loop iterations of
-    mcl_rmat14_4iter on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md);
-    elsewhere the JAX package's rule, fill where its keys fit."""
-    if device.type != "cuda" and _fill_pack_ok(elem_pad, m):
-        return "fill"
-    return "gather"
-
-
-def _loop_expand_fill(kcsc, vals, col_f, valid_f, jb_f, offsets, p_clamped, *,
-                      p_pad: int, elem_pad: int, m: int):
-    """The expansion's B-side fetch as one combined sort and a
-    last-observation fill, in place of a gather per product.
-
-    Product p of element f (column c_f) reads stream position j; it gets
-    the key ``j·(m+1) + c_f + 1``, affine in p within f's segment, so one
-    segment broadcast makes it. Each stream position q gets a table slot
-    keyed ``q·(m+1)`` with its (row, value). One sort of the
-    p_pad + elem_pad slots puts each table slot right before its
-    products, and a running count of the table slots names the latest
-    one at each slot, whose (row, value) fills it.
-
-    Returns (merge key, value) UNSORTED at length p_pad + elem_pad:
-    product slots hold the key ``c_f·m + row`` in ``kcsc``'s dtype and
-    ``a_val·val_q``; table and padding slots the sentinel."""
-    mp1 = m + 1
-    pin = ((_U32 - 1 - m) // mp1) * mp1 + m  # ≡ m: no table slot, past every product
-    starts = offsets[:-1]
-    dev = kcsc.device
-    p = torch.arange(p_pad, device=dev)
-    w = (jb_f.long() - starts.long()) * mp1 + torch.where(valid_f, col_f, 0).long() + 1
-    # broadcast as int32 bit patterns (the sums wrap mod 2³²), then back
-    # to unsigned values
-    w = (torch.remainder(w + 2**31, _U32) - 2**31).to(torch.int32)
-    key1 = ((_segment_broadcast_bits(w, starts, p_pad).long() & (_U32 - 1)) + p * mp1) % _U32
-    aval = _segment_broadcast_bits(vals.view(torch.int32), starts, p_pad).view(torch.float32)
-    prod_valid = p < p_clamped
-    prod_key = torch.where(prod_valid, key1, pin)
-    prod_val = torch.where(prod_valid, aval, 0.0)
-    tbl_key = torch.arange(elem_pad, device=dev) * mp1
-    tbl_row = (_ukey(kcsc) % m).to(torch.int32)
-    # the unsigned keys sort as biased int32
-    sk, order = torch.sort((torch.cat([prod_key, tbl_key]) + KEY_BIAS).to(torch.int32))
-    sk = sk.long() - KEY_BIAS
-    sf = torch.cat([prod_val, vals])[order]
-    is_table = (sk % mp1) == 0
-    # last-observation fill: every table slot is in the stream, in the
-    # order of q, so the latest table slot at or before a slot is table
-    # q = (table slots up to it) − 1, and its observation (row_q, val_q)
-    q = torch.cumsum(is_table, 0, dtype=torch.int32) - 1
-    seen = q >= 0
-    q = q.clamp(min=0)
-    fill_i = torch.where(seen, tbl_row[q], 0)
-    fill_f = torch.where(seen, vals[q], 0.0)
-    is_prod = ~is_table & (sk != pin)
-    out_key = torch.where(is_prod, _pack(sk % mp1 - 1, fill_i, m, kcsc.dtype),
-                          _sentinel(kcsc.dtype))
-    return out_key, torch.where(is_prod, sf * fill_f, 0.0)
-
-
 def _mcl_iteration(state, *, p_pad: int, elem_pad: int, m: int, inflation: float,
-                   threshold: float, blk_cap: int | None = None, join: str = "auto"):
+                   threshold: float):
     """One MCL iteration (square + inflate) on fixed buffers, with no
     host read.
 
@@ -406,42 +308,27 @@ def _mcl_iteration(state, *, p_pad: int, elem_pad: int, m: int, inflation: float
     the survivors of the prune (on the raw merged values: v^p > t ⟺
     v > t^(1/p)) are front-compacted, in order, to ``elem_pad`` slots,
     then powered and column-normalised (K2 with ``n_cols=1``). The
-    products take ``p_pad`` slots.
+    products take ``p_pad`` slots; :func:`loop_expand` reads each
+    product's (row, value) by index (one kernel on the card).
 
-    ``ok`` gathers every budget: P within ``p_pad`` (with the JAX
-    package's float32 cross-checks), the survivors within ``elem_pad``
-    and, with ``blk_cap``, within ``blk_cap`` per ``CAP_BLOCK``-slot
-    block of the merged stream (the JAX package's compaction bound).
-    ``join``: "gather" reads each product's (row, value) by index
-    (:func:`loop_expand`: one kernel on the card), "fill" by
-    :func:`_loop_expand_fill`; "auto" as :func:`loop_join` picks."""
-    if join not in ("auto", "fill", "gather"):
-        raise ValueError(f"join={join!r}: expected 'auto', 'fill', or 'gather'")
+    ``ok`` gathers every budget: P (exact in int64) within ``p_pad``
+    and the survivors within ``elem_pad``."""
     kcsc, vals, starts_ext, ok = state
     dev = kcsc.device
     sent = _sentinel(kcsc.dtype)
     with span("expand"):
-        col_f, row_f = _unpack(kcsc, m)
+        _, row_f = _unpack(kcsc, m)
         valid_f = kcsc != sent
         indptr = starts_ext
         col_deg = indptr[1:] - indptr[:-1]
-        # element f = (k=row_f, c=col_f) pairs with CSC column row_f
+        # element f = (k=row_f, c) pairs with CSC column row_f
         a_k = torch.where(valid_f, row_f, 0)
         deg = torch.where(valid_f, col_deg[a_k.long().clamp(max=m - 1)], 0)
         offsets = torch.cat([deg.new_zeros(1, dtype=torch.int64), torch.cumsum(deg, 0)])
         p_total = offsets[-1]
-        p_f = deg.to(torch.float32).sum()
-        ok = (ok & (p_total >= 0) & (p_total <= p_pad)
-              & (p_f <= p_pad * 1.001 + 1024.0)
-              & ((p_f - p_total.to(torch.float32)).abs() <= 0.01 * p_f + 1024.0))
+        ok = ok & (p_total <= p_pad)
         p_clamped = p_total.clamp(0, p_pad)
-        if join == "auto":
-            join = loop_join(elem_pad, m, dev)
-        if join == "fill":
-            key, v = _loop_expand_fill(kcsc, vals, col_f, valid_f, indptr[a_k.long()], offsets,
-                                       p_clamped, p_pad=p_pad, elem_pad=elem_pad, m=m)
-        else:
-            key, v = loop_expand(kcsc, vals, indptr, offsets, p_clamped, p_pad=p_pad, m=m)
+        key, v = loop_expand(kcsc, vals, indptr, offsets, p_clamped, p_pad=p_pad, m=m)
     key_s, v_s = _sort_pair(key, v)
     # the stream length as pad_count: no real key is the sentinel
     _, _, v2, valid2, _ = merge_epilogue(key_s, v_s, m, m, key_s.shape[0])
@@ -450,8 +337,6 @@ def _mcl_iteration(state, *, p_pad: int, elem_pad: int, m: int, inflation: float
         v2r = torch.where(valid2, torch.clamp(v2, min=0.0), 0.0)
         survive = valid2 & (v2r > thr_root)
         ok = ok & (survive.sum() <= elem_pad)
-        if blk_cap:
-            ok = ok & _blocks_within(survive, blk_cap)
         # the merged stream is sorted, so compaction in order keeps it sorted
         k_next, vp_next = _to_front(survive, elem_pad, (key_s, sent), (v2r, 0.0))
         vp_next = torch.pow(vp_next, inflation)
@@ -562,8 +447,7 @@ def _stage1_squaring(tplan):
 
 def mcl_whole_traced(tplan, *, p_pad: int, nnz_pad: int, m: int, n_cols: int, iters: int,
                      inflation: float, threshold: float, elem_pad: int | None = None,
-                     p_pads: tuple[int, ...] | None = None,
-                     blk_caps: tuple[int, ...] | None = None, join: str = "auto"):
+                     p_pads: tuple[int, ...] | None = None):
     """The whole staged MCL with no host read: the first squaring over
     ``tplan``, prune, compaction into ``elem_pad`` loop slots in CSC
     order, inflation and column normalisation, ``iters`` loop iterations
@@ -579,11 +463,7 @@ def mcl_whole_traced(tplan, *, p_pad: int, nnz_pad: int, m: int, n_cols: int, it
 
     ``p_pads``: one product budget per loop iteration (P collapses as the
     flow converges; each is capped by ``p_pad`` and at least
-    ``elem_pad``). ``blk_caps``: per squaring, the most survivors any
-    ``CAP_BLOCK``-slot block of its merged stream may hold (entry 0: the first
-    squaring, entries 1..: the loop; 0 = no bound). A bound is checked
-    into ``ok``: the JAX package's blocked compaction is exact only under
-    it, so the same inputs take the same path here."""
+    ``elem_pad``)."""
     if inflation <= 0.0:
         raise ValueError(f"inflation must be positive, got {inflation}")
     if p_pads is None:
@@ -599,24 +479,20 @@ def mcl_whole_traced(tplan, *, p_pad: int, nnz_pad: int, m: int, n_cols: int, it
         # prune on the raw merged values (v^p > t ⟺ v > t^(1/p) for v ≥ 0,
         # p > 0), so the power runs after the compaction on survivors only
         thr_root = _f32(float(threshold) ** (1.0 / float(inflation)))
-        cap1 = blk_caps[0] if blk_caps else 0
-        kp, vp, ok = prune_compact(
-            sq.rows, sq.cols, sq.vals, sq.valid, thr_root=thr_root, m=m, elem_pad=elem_pad,
-            cap=cap1 if cap1 and sq.rows.shape[0] >= 16 * elem_pad else 0)
+        kp, vp, ok = prune_compact(sq.rows, sq.cols, sq.vals, sq.valid, thr_root=thr_root, m=m,
+                                   elem_pad=elem_pad)
         kp, vp = _sort_pair(kp, vp)
         valid1 = kp != _sentinel(kp.dtype)
         vp = torch.where(valid1, torch.pow(torch.clamp(vp, min=0.0), inflation), 0.0)
         starts1 = _column_starts(kp, m)
         colsum = _csc_colnorm_sorted(_col_keys(kp, m), vp, m, starts1)
         state = (kp, torch.where(valid1, vp / colsum, 0.0), starts1, ok)
-    # a cap schedule of the wrong length is dropped: it only saves time
-    iter_caps = blk_caps[1:] if blk_caps and len(blk_caps) == iters + 1 else (0,) * iters
     with span("mcl.loop", device=kp.device, inherit=False):
-        for i, (pp, cap) in enumerate(zip(p_pads, iter_caps)):
+        for i, pp in enumerate(p_pads):
             with span("mcl.iteration", iteration=i + 2):
                 state = _mcl_iteration(state, p_pad=max(min(pp, p_pad), elem_pad),
                                        elem_pad=elem_pad, m=m, inflation=inflation,
-                                       threshold=threshold, blk_cap=cap, join=join)
+                                       threshold=threshold)
     with span("mcl.finish"):
         k_out, v_out, _, ok = state
         valid = k_out != _sentinel(k_out.dtype)

@@ -38,7 +38,6 @@ import torch
 
 from outerspace_tpu_torch.formats.coo import COO
 from outerspace_tpu_torch.formats.csr import CSR
-from outerspace_tpu_torch.ops.chain import CAP_BLOCK
 from outerspace_tpu_torch.ops.symbolic import round_up_bucket
 from outerspace_tpu_torch.perf.timer import count, span
 
@@ -459,76 +458,17 @@ def _host_mcl_sizing(flow_scipy, inflation, iters, threshold):
     """Per-squaring product counts P_i and surviving nnz of the MCL
     recurrence, run once in scipy with the device loop's semantics
     (square, prune on the unnormalised powered values, normalise)."""
-    p_list, nnz_list, _ = _host_mcl_sizing_full(flow_scipy, inflation, iters, threshold)
-    return p_list, nnz_list
-
-
-def _host_mcl_sizing_full(flow_scipy, inflation, iters, threshold, stage1_layout=None):
-    """:func:`_host_mcl_sizing` plus per-squaring compaction block caps.
-
-    Each squaring's merged stream is its product multiset sorted by key,
-    so a survivor's slot is the exclusive cumulative sum of the
-    multiplicities before it: the first squaring in row-major order per
-    part (``stage1_layout`` = ``[(row_lo, row_hi, merge_pad), ...]``,
-    sentinel tails per part), the loop squarings in CSC order. ``caps[i]``
-    is the most survivors any ``CAP_BLOCK``-slot block of squaring ``i``'s
-    stream holds (0 where the layout is unknown)."""
     import scipy.sparse as sp
 
     flow = flow_scipy.tocsr()
     n = flow.shape[0]
-    p_list, nnz_list, caps = [], [], []
-    for it in range(iters):
+    p_list, nnz_list = [], []
+    for _ in range(iters):
         rownnz = np.diff(flow.indptr)
         coo = flow.tocoo()
         p_list.append(int(rownnz[coo.col].sum()))
         sqm = (flow @ flow).tocsr()
-        sqm.sort_indices()
-        # product multiplicities on the same pattern: how many k's feed
-        # each output (r, c)
-        pat = sp.csr_matrix((np.ones(flow.nnz, np.int64), flow.indices, flow.indptr),
-                            shape=flow.shape)
-        cnt = (pat @ pat).tocsr()
-        cnt.sort_indices()
-        keep_r = np.power(np.maximum(sqm.data, 0.0), inflation) > threshold
-        if it == 0 and stage1_layout is not None:
-            # per part, survivors' ranks among the part's sorted products;
-            # blocks over the concatenated stream
-            bc = np.zeros(1, np.int64)
-            off = 0
-            ok_layout = True
-            for lo, hi, mp in stage1_layout:
-                e0, e1 = cnt.indptr[lo], cnt.indptr[hi]
-                mult = cnt.data[e0:e1]
-                pos = (np.concatenate([[0], np.cumsum(mult[:-1])]) if e1 > e0
-                       else np.zeros(0, np.int64))
-                if e1 > e0 and pos[-1] + mult[-1] > mp:
-                    ok_layout = False  # the layout does not match: no cap
-                    break
-                gpos = off + pos[keep_r[e0:e1]]
-                if gpos.size:
-                    b = np.bincount(gpos // CAP_BLOCK)
-                    if b.size > bc.size:
-                        b[: bc.size] += bc
-                        bc = b
-                    else:
-                        bc[: b.size] += b
-                off += mp
-            caps.append(int(bc.max()) if ok_layout else 0)
-        elif it == 0:
-            caps.append(0)
-        else:
-            # a loop squaring: the stream sorted by CSC key (col·m + row)
-            sqc = sqm.tocsc()
-            sqc.sort_indices()
-            cc = cnt.tocsc()
-            cc.sort_indices()
-            mult = cc.data
-            pos = (np.concatenate([[0], np.cumsum(mult[:-1])]) if mult.size
-                   else np.zeros(0, np.int64))
-            keep_c = np.power(np.maximum(sqc.data, 0.0), inflation) > threshold
-            gpos = pos[keep_c]
-            caps.append(int(np.bincount(gpos // CAP_BLOCK).max()) if gpos.size else 0)
+        sqm.sort_indices()  # the column sums below add in this order
         sq = sqm.tocoo()
         vp = np.power(np.maximum(sq.data, 0.0), inflation)
         keep = vp > threshold
@@ -538,24 +478,7 @@ def _host_mcl_sizing_full(flow_scipy, inflation, iters, threshold, stage1_layout
         np.add.at(cs, c, v)
         cs[cs == 0] = 1.0
         flow = sp.coo_matrix((v / cs[c], (r, c)), shape=(n, n)).tocsr()
-    return p_list, nnz_list, caps
-
-
-def _stage1_stream_layout(tplan):
-    """``[(row_lo, row_hi, merge_pad), ...]`` of the first squaring's
-    merged stream per part, in concatenation order, or None when the plan
-    has no common per-part stream length (the host sweep then sets no
-    cap for the first squaring)."""
-    from outerspace_tpu_torch.ops.gather_pipeline import GatherPipelinePlan
-    from outerspace_tpu_torch.ops.spgemm import TiledPartsPlan
-
-    if isinstance(tplan, GatherPipelinePlan):
-        return [(p.row_base, p.row_base + p.span, p.merge_pad) for p in tplan.parts]
-    if isinstance(tplan, TiledPartsPlan) and tplan.merge_pad:
-        if not (tplan.rebased or tplan.m * tplan.n <= 2**32):
-            return None  # the two-key merge: another stream shape
-        return [(lo, hi, tplan.merge_pad) for lo, hi, _ in tplan.parts]
-    return None
+    return p_list, nnz_list
 
 
 def _stage1_stream(tplan) -> tuple[int, int]:
@@ -570,31 +493,18 @@ def _stage1_stream(tplan) -> tuple[int, int]:
     return tplan.padded_total, 1
 
 
-def _blk_caps_with_margin(caps):
-    """×1.5 + 64 over the host's exact per-block survivor maxima,
-    rounded up to 128 and capped at the block size (room for the
-    float32-against-float64 prune boundary; ``ok`` still guards). 0 stays
-    0 (no bound for that squaring)."""
-    return tuple(min(CAP_BLOCK, -(-(int(1.5 * c) + 64) // 128) * 128) if c else 0 for c in caps)
-
-
 def mcl_size(prep: dict) -> None:
     """The host sizing sweep of a staged MCL (scipy): the exact products
-    P_i of every squaring, the survivors of every iteration and the
-    per-squaring block caps set the loop's budgets, each with a ×1.5
-    margin: ``elem_pad`` (element slots), ``nnz_pad`` (the output),
-    ``p_pads`` (one product budget per loop squaring, at most three
-    distinct sizes, each rounded up), ``p_pad`` (their maximum) and
-    ``blk_caps``. Fills ``prep`` and stores the budgets in the sizing
-    cache under ``prep["sizing_key"]``."""
+    P_i of every squaring and the survivors of every iteration set the
+    loop's budgets, each with a ×1.5 margin: ``elem_pad`` (element
+    slots), ``nnz_pad`` (the output), ``p_pads`` (one product budget per
+    loop squaring, at most three distinct sizes, each rounded up) and
+    ``p_pad`` (their maximum). Fills ``prep`` and stores the budgets in
+    the sizing cache under ``prep["sizing_key"]``."""
     from outerspace_tpu_torch.sched import sizing_cache
 
-    iters = prep["iters"]
-    p_list, nnz_list, raw_caps = _host_mcl_sizing_full(
-        prep["flow"].to_scipy().tocsr(), prep["inflation"], iters, prep["threshold"],
-        stage1_layout=_stage1_stream_layout(prep["tplan"]),
-    )
-    blk_caps = _blk_caps_with_margin(raw_caps)
+    p_list, nnz_list = _host_mcl_sizing(prep["flow"].to_scipy().tocsr(), prep["inflation"],
+                                        prep["iters"], prep["threshold"])
     elem_pad = round_up_bucket(max(int(1.5 * max(nnz_list)) + 1024, 4096), min_size=4096)
     nnz_pad = round_up_bucket(max(int(1.5 * nnz_list[-1]) + 256, 1024), min_size=1024)
     p_pads = tuple(round_up_bucket(max(int(1.5 * p) + 4096, elem_pad, 4096), min_size=4096)
@@ -608,7 +518,6 @@ def mcl_size(prep: dict) -> None:
     prep["p_pad"] = max(p_pads) if p_pads else elem_pad
     prep["nnz_pad"], prep["elem_pad"] = nnz_pad, elem_pad
     prep["p_pads"] = p_pads or None
-    prep["blk_caps"] = blk_caps if any(blk_caps) else None
     prep.pop("flow", None)
     if "sizing_key" in prep:
         sizing_cache.store(prep["sizing_key"], _budgets(prep))
@@ -617,15 +526,16 @@ def mcl_size(prep: dict) -> None:
 def _budgets(prep: dict) -> dict:
     """The budgets of ``prep`` as the sizing cache stores them (a caller
     may set only ``p_pad`` and ``nnz_pad``)."""
-    pps, bcs = prep.get("p_pads"), prep.get("blk_caps")
+    pps = prep.get("p_pads")
     return {"p_pad": prep["p_pad"], "nnz_pad": prep["nnz_pad"], "elem_pad": prep.get("elem_pad"),
-            "p_pads": list(pps) if pps else None, "blk_caps": list(bcs) if bcs else None}
+            "p_pads": list(pps) if pps else None}
 
 
 def _from_cache(prep: dict) -> bool:
     """Fill ``prep``'s budgets from the sizing cache; False on a miss.
-    Schedules of the wrong length (a torn or edited entry) are dropped:
-    a bad entry costs speed, never a wrong result."""
+    A schedule of the wrong length (a torn or edited entry) is dropped:
+    a bad entry costs speed, never a wrong result. Keys this does not
+    read are ignored."""
     from outerspace_tpu_torch.sched import sizing_cache
 
     cached = sizing_cache.lookup(prep["sizing_key"])
@@ -635,9 +545,8 @@ def _from_cache(prep: dict) -> bool:
     prep["p_pad"], prep["nnz_pad"] = cached["p_pad"], cached["nnz_pad"]
     prep["elem_pad"] = cached.get(
         "elem_pad", round_up_bucket(max(4 * cached["nnz_pad"], 4096), min_size=4096))
-    pps, bcs = cached.get("p_pads"), cached.get("blk_caps")
+    pps = cached.get("p_pads")
     prep["p_pads"] = tuple(pps) if pps and len(pps) == iters - 1 else None
-    prep["blk_caps"] = tuple(bcs) if bcs and len(bcs) == iters else None
     prep["sizing_cached"] = True
     prep.pop("flow", None)
     return True
@@ -651,7 +560,7 @@ def mcl_run(prep: dict):
     The budgets come from ``prep``, else the sizing cache, else the host
     sweep (:func:`mcl_size`). If ``ok`` is false, the exact stepwise
     chain runs from the first squaring's flow, and the budgets double
-    (single-size, no caps) for the next run and in the cache.
+    (single-size) for the next run and in the cache.
 
     A run is an ``mcl.run`` span (attribute ``fallback``) over the
     chain's stages, ``mcl.wait`` (the read of ``ok``) and, when taken,
@@ -681,7 +590,6 @@ def mcl_run(prep: dict):
             tplan, p_pad=prep["p_pad"], nnz_pad=prep["nnz_pad"], m=n, n_cols=n,
             iters=iters - 1, inflation=inflation, threshold=threshold,
             elem_pad=prep.get("elem_pad"), p_pads=prep.get("p_pads"),
-            blk_caps=prep.get("blk_caps"),
         )
         with span("mcl.wait"):
             fast = bool(ok)
@@ -699,7 +607,7 @@ def mcl_run(prep: dict):
     prep["p_pad"] = round_up_bucket(prep["p_pad"] * 2, min_size=4096)
     prep["nnz_pad"] = round_up_bucket(max(prep["nnz_pad"] * 2, int(out.nnz)), min_size=1024)
     prep["elem_pad"] = round_up_bucket(prep.get("elem_pad", prep["nnz_pad"]) * 2, min_size=4096)
-    prep["p_pads"] = prep["blk_caps"] = None
+    prep["p_pads"] = None
     prep.pop("sizing_cached", None)
     if "sizing_key" in prep:
         sizing_cache.store(prep["sizing_key"], _budgets(prep))

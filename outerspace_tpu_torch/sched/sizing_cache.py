@@ -62,7 +62,7 @@ def _load() -> dict:
 
 # keys that may hold None (a disabled per-iteration schedule); None in
 # any other key is corruption and is dropped, so the sweep re-runs
-_NONE_OK = frozenset({"p_pads", "blk_caps"})
+_NONE_OK = frozenset({"p_pads"})
 
 
 def _coerce(k, v):

@@ -236,7 +236,7 @@ def _to_host(x):
     return x
 
 
-def _rank_main(rank, world, tmp, backend, device, timeout, results):
+def _rank_main(rank, world, tmp, backend, device, timeout, threads, results):
     global _RANK_DEVICE
     try:
         import torch
@@ -246,7 +246,7 @@ def _rank_main(rank, world, tmp, backend, device, timeout, results):
         if dev.type == "cuda":
             dev = torch.device("cuda", rank % torch.cuda.device_count())
             torch.cuda.set_device(dev)
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        torch.set_num_threads(max(1, threads // world))
         _RANK_DEVICE = dev
         with open(os.path.join(tmp, "job.pkl"), "rb") as f:
             fn, args = pickle.load(f)
@@ -275,9 +275,12 @@ def run_world(fn, world_size: int, *, backend: str, device: str = "cuda", args=(
     rank per card, ``device`` "cuda") or "gloo" (``device`` "cuda": the
     ranks share the cards, ``rank % cards`` each; or "cpu"). A mesh
     made in a rank without a device of its own takes the rank's. The
-    ranks meet at a ``file://`` rendezvous in a temporary directory. If
-    a rank raises, or the world has not ended within ``timeout``
-    seconds, every rank is stopped and the first failure is raised here."""
+    ranks meet at a ``file://`` rendezvous in a temporary directory and
+    split threads between them, one at least each: on the CPU the
+    caller's intra-op threads (``torch.get_num_threads()``), with cards
+    the host's cores. If a rank raises, or the world has
+    not ended within ``timeout`` seconds, every rank is stopped and the
+    first failure is raised here."""
     import torch
     import torch.multiprocessing as mp
 
@@ -292,6 +295,7 @@ def run_world(fn, world_size: int, *, backend: str, device: str = "cuda", args=(
                 "(ranks that share a card need backend='gloo')")
     elif dev_type == "cuda" and not torch.cuda.is_available():
         raise ValueError("device 'cuda' needs a CUDA device")
+    threads = torch.get_num_threads() if dev_type == "cpu" else (os.cpu_count() or 1)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="outerspace_world_") as tmp:
@@ -301,7 +305,8 @@ def run_world(fn, world_size: int, *, backend: str, device: str = "cuda", args=(
         with open(os.path.join(tmp, "job.pkl"), "wb") as f:
             pickle.dump((fn, tuple(args)), f, protocol=pickle.HIGHEST_PROTOCOL)
         procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(r, world_size, tmp, backend, device, timeout, results))
+                             args=(r, world_size, tmp, backend, device, timeout,
+                                   threads, results))
                  for r in range(world_size)]
         for p in procs:
             p.start()

@@ -148,14 +148,14 @@ def test_plain_equals_the_inline_expand(name, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
 def test_mcl_iteration_through_the_wrapper_equals_the_inline_expand(dtype, monkeypatch):
-    """The gather join's whole iteration, state for state, through the
-    wrapper and through the inline expand it replaced."""
+    """The whole iteration, state for state, through the wrapper and
+    through the inline expand it replaced."""
     m = M32 if dtype == torch.int32 else M64
     kcsc, vals, starts = flow_state(5, m, dtype, hub=5000, light=6000, tail=800_000)
     state = (kcsc, vals, starts, torch.ones((), dtype=torch.bool))
     p_total = int(expand_inputs(kcsc, starts, m, 2**31 - 1)[0][-1])
     kw = dict(p_pad=p_total + 5000, elem_pad=kcsc.shape[0], m=m, inflation=2.0,
-              threshold=1e-4, join="gather")
+              threshold=1e-4)
     got = chain._mcl_iteration(state, **kw)
     monkeypatch.setattr(chain, "loop_expand", old_expand)
     want = chain._mcl_iteration(state, **kw)

@@ -1,11 +1,13 @@
 """The device chain of the port (``outerspace_tpu_torch/ops/chain.py``)
-on the CPU against the JAX package's: ranks and column starts exact,
-compaction's result and ``ok`` (a block over its cap included), the fill
-join's keys bit-equal, one loop iteration in both joins (keys, column
-starts and ``ok`` exact, values within rtol 1e-5 / atol 1e-6), the CSC
-state's conversions and the stats; the stepwise and fused chains and
-``square_device`` against scipy (structure exact, values within rtol
-5e-4 / atol 1e-5, the JAX package's MCL tolerance)."""
+on the CPU against the JAX package's: ranks and column starts exact, the
+compaction of the fused chain's entry, one loop iteration (keys, column
+starts and ``ok`` exact, values within rtol 1e-5 / atol 1e-6; where the
+JAX package's per-block survivor cap fails, the port, which has none,
+against the JAX iteration without it), the same iteration on int64 keys
+bit-equal to the int32 one, the CSC state's conversions and the stats;
+the stepwise and fused chains and ``square_device`` against scipy
+(structure exact, values within rtol 5e-4 / atol 1e-5, the JAX
+package's MCL tolerance)."""
 
 import functools
 
@@ -115,29 +117,6 @@ def test_column_starts_equal_jax(m, nnz):
 # ----------------------------------------------------------- compaction
 
 
-def masked_stream(seed=5, L=65536 + 4096, survivors=3000):
-    rng = np.random.default_rng(seed)
-    pos = np.sort(rng.choice(L, size=survivors, replace=False))
-    keys = np.full(L, I32_MAX, np.int32)
-    uniq = np.unique(rng.integers(-(2**31), 2**31 - 2, size=8000))[:survivors]
-    keys[pos] = rng.permutation(uniq).astype(np.int32)
-    vals = np.zeros(L, np.float32)
-    vals[pos] = rng.random(survivors, dtype=np.float32)
-    return keys, vals, int(np.bincount(pos // 8192).max())
-
-
-@pytest.mark.parametrize("out_len", [2048, 8192, 65536])
-def test_compact_masked_stream_equals_jax(out_len):
-    keys, vals, cap = masked_stream()
-    for c in (cap, cap - 1):  # cap - 1: one block over its cap
-        wk, wv, wok = jc.compact_masked_stream(jnp.asarray(keys), jnp.asarray(vals), out_len, cap=c)
-        gk, gv, gok = tc.compact_masked_stream(t(keys), t(vals), out_len, cap=c)
-        assert bool(gok) == bool(wok) == (c == cap)
-        if c == cap:  # the output is used only where ok holds
-            np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
-            np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
-
-
 def test_slice_compact_equals_jax():
     rng = np.random.default_rng(3)
     n = 3000
@@ -156,77 +135,82 @@ def test_slice_compact_equals_jax():
 # ------------------------------------------------------- the loop pieces
 
 
-def fill_args(key, vals, starts, p_pad):
-    """The fill join's inputs as ``_mcl_iteration`` derives them (numpy)."""
+def p_total(key, starts):
+    """P of the loop squaring of a CSC state (numpy): each element
+    (k, c) pairs with CSC column k."""
     m = starts.shape[0] - 1
-    ku = key.astype(np.int64) - BIAS
-    col_f, row_f = (ku // m).astype(np.int32), (ku % m).astype(np.int32)
-    valid_f = key != I32_MAX
-    a_k = np.where(valid_f, row_f, 0)
-    deg = np.where(valid_f, np.diff(starts)[np.minimum(a_k, m - 1)], 0)
-    offsets = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
-    p_clamped = np.int32(min(offsets[-1], p_pad))
-    return col_f, valid_f, starts[a_k], offsets, p_clamped
-
-
-@pytest.mark.parametrize("graph, p_pad", [("rmat7", None), ("rmat7", 3000), ("er150", None)])
-def test_loop_expand_fill_keys_bit_equal_jax(graph, p_pad):
-    g = rmat(7, edge_factor=6, seed=2) if graph == "rmat7" else erdos_renyi(150, 150, 0.05, seed=4)
-    key, vals, starts = csc_state(g, 4096)
-    m = g.shape[0]
-    args = (key, vals, *fill_args(key, vals, starts, p_pad or 1 << 20))
-    p_pad = p_pad or int(args[5][-1]) + 1000
-    args = (key, vals, *fill_args(key, vals, starts, p_pad))
-    wk, wv = jc._loop_expand_fill(*map(jnp.asarray, args), p_pad=p_pad, elem_pad=4096, m=m,
-                                  fill_passes=int(np.ceil(np.log2(min(4096, p_pad) + 1))))
-    gk, gv = tc._loop_expand_fill(*map(t, args), p_pad=p_pad, elem_pad=4096, m=m)
-    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
-    np.testing.assert_array_equal(gv.numpy().view(np.int32), np.asarray(wv).view(np.int32))
-    assert (gk.numpy() != I32_MAX).sum() == min(int(args[5][-1]), p_pad)
+    valid = key != I32_MAX
+    row = (key.astype(np.int64) - BIAS) % m
+    return int(np.diff(starts)[row[valid]].sum())
 
 
 ITER_CASES = {
-    # (graph, elem_pad, p_pad or None for P + 2,000, blk_cap, ok)
+    # (graph, elem_pad, p_pad or None for P + 2,000, the JAX package's
+    # blk_cap, ok)
     "fits": ("er120", 4096, None, None, True),
     "capped": ("rmat8", 8192, None, 2048, True),
     "p_over_budget": ("er120", 1024, 2048, None, False),
     "elems_over_budget": ("rmat8", 2048, None, None, False),
-    "block_over_cap": ("rmat8", 8192, None, 8, False),
+    "block_over_cap": ("rmat8", 8192, None, 8, True),
 }
 GRAPHS = {"er120": lambda: erdos_renyi(120, 120, 0.04, seed=55),
           "rmat8": lambda: rmat(8, edge_factor=8, seed=11)}
 
 
-@pytest.mark.parametrize("join", ["fill", "gather"])
-@pytest.mark.parametrize("case", sorted(ITER_CASES))
-def test_mcl_iteration_equals_jax(case, join):
+def iter_case(case):
+    """(state as numpy, the iteration's keywords, the JAX package's
+    blk_cap, ok) of an ``ITER_CASES`` entry."""
     graph, elem_pad, p_pad, blk_cap, ok = ITER_CASES[case]
     g = GRAPHS[graph]()
     key, vals, starts = csc_state(g, elem_pad)
-    p_pad = p_pad or int(fill_args(key, vals, starts, 0)[3][-1]) + 2000
-    kw = dict(p_pad=p_pad, elem_pad=elem_pad, m=g.shape[0], inflation=2.0, threshold=1e-4,
-              blk_cap=blk_cap, join=join)
-    step = jax.jit(functools.partial(jc._mcl_iteration, **kw))
-    want = step((jnp.asarray(key), jnp.asarray(vals), jnp.asarray(starts), jnp.bool_(True)))
-    got = tc._mcl_iteration((t(key), t(vals), t(starts), torch.ones((), dtype=torch.bool)), **kw)
-    assert bool(got[3]) == bool(want[3]) == ok
+    p_pad = p_pad or p_total(key, starts) + 2000
+    kw = dict(p_pad=p_pad, elem_pad=elem_pad, m=g.shape[0], inflation=2.0, threshold=1e-4)
+    return (key, vals, starts), kw, blk_cap, ok
+
+
+def jax_iteration(state, kw, blk_cap):
+    """The JAX package's iteration by its gather join, with ``blk_cap``."""
+    step = jax.jit(functools.partial(jc._mcl_iteration, blk_cap=blk_cap, join="gather", **kw))
+    return step((*map(jnp.asarray, state), jnp.bool_(True)))
+
+
+@pytest.mark.parametrize("case", sorted(ITER_CASES))
+def test_mcl_iteration_equals_jax(case):
+    state, kw, blk_cap, ok = iter_case(case)
+    want = jax_iteration(state, kw, blk_cap)
+    got = tc._mcl_iteration((*map(t, state), torch.ones((), dtype=torch.bool)), **kw)
+    assert bool(got[3]) == ok
     if case == "block_over_cap":
-        return  # the JAX package's blocked compaction is exact only where ok holds
+        # the JAX package's blocked compaction is exact only under its cap,
+        # so it falls back; the port's compaction keeps every survivor
+        # that fits, and equals the JAX iteration with no cap
+        assert not bool(want[3])
+        want = jax_iteration(state, kw, None)
+    assert bool(want[3]) == ok
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), **MERGE_TOL)
 
 
-def test_loop_join_auto_rule():
-    """"auto" keeps the JAX package's rule off the card (fill where its
-    keys fit 32 bits, the JAX ``_fill_pack_ok``) and takes gather on a
-    CUDA device, where gather is the faster join."""
-    cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    for elem_pad, m in ((4096, 256), (1 << 20, 1 << 14), (1 << 20, 1 << 13)):
-        want = "fill" if jc._fill_pack_ok(elem_pad, m) else "gather"
-        assert tc.loop_join(elem_pad, m, cpu) == want
-        assert tc.loop_join(elem_pad, m, cuda) == "gather"
-    assert tc.loop_join(1 << 20, 1 << 14, cpu) == "gather"  # keys past 32 bits
+@pytest.mark.parametrize("case", sorted(ITER_CASES))
+def test_mcl_iteration_int64_keys_equal_int32(case):
+    """The same state keyed in plain int64 ``col·m + row`` (INT64_MAX
+    tail), as the chain keys it from m² ≥ 2³² on: every helper reads the
+    key type from its keys, so the iteration gives the same keys,
+    unpacked, the same column starts and ``ok``, and the same values bit
+    for bit."""
+    (key, vals, starts), kw, _, ok = iter_case(case)
+    wide = np.where(key == I32_MAX, np.iinfo(np.int64).max, key.astype(np.int64) - BIAS)
+    ones = torch.ones((), dtype=torch.bool)
+    narrow = tc._mcl_iteration((t(key), t(vals), t(starts), ones), **kw)
+    got = tc._mcl_iteration((t(wide), t(vals), t(starts), ones), **kw)
+    assert got[0].dtype == torch.int64 and bool(got[3]) == bool(narrow[3]) == ok
+    real = narrow[0] != I32_MAX
+    assert torch.equal(got[0] != np.iinfo(np.int64).max, real)
+    for a, b in zip(tc._unpack(got[0], kw["m"]), tc._unpack(narrow[0], kw["m"])):
+        assert torch.equal(a[real], b[real])
+    assert torch.equal(got[2], narrow[2])
+    assert torch.equal(got[1].view(torch.int32), narrow[1].view(torch.int32))
 
 
 def test_csc_colnorm_equals_jax():

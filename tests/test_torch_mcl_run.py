@@ -1,11 +1,14 @@
 """Markov clustering through the port's entry points on the CPU
 (``outerspace_tpu_torch/ops/graph.py``): the host sizing sweep and the
 budgets of ``mcl_size`` equal to the JAX package's under its cost-model
-weights (both packages then pick the same plan), ``mcl_whole_traced``
-against the JAX package's, and ``markov_cluster`` against the JAX
-package's staged chain and against scipy (nnz exact, cluster sets equal,
-values within rtol 5e-4 / atol 1e-5); the fallback when ``ok`` is false,
-the report, the warm sizing cache and a torn cache entry."""
+weights (both packages then pick the same plan; the port sets no
+per-block survivor caps), ``mcl_whole_traced`` against the JAX
+package's, and ``markov_cluster`` against the JAX package's staged chain
+and against scipy (nnz exact, cluster sets equal, values within rtol
+5e-4 / atol 1e-5); the fallback when ``ok`` is false, the report, the
+warm sizing cache, a torn cache entry, and entries that carry the JAX
+package's caps, which the port ignores: it stays on the fast path where
+those caps would fail."""
 
 import json
 
@@ -24,10 +27,11 @@ from outerspace_tpu_torch.convert import csr_from_arrays
 from outerspace_tpu_torch.formats import COO as TCOO
 from outerspace_tpu_torch.ops.chain import mcl_whole_traced
 from outerspace_tpu_torch.ops.symbolic import round_up_bucket
+from outerspace_tpu_torch.perf import timer
 from outerspace_tpu_torch.sched.planner import TILE_A_CLASSES
 
 MCL_TOL = dict(rtol=5e-4, atol=1e-5)
-BUDGETS = ("p_pad", "nnz_pad", "elem_pad", "p_pads", "blk_caps")
+BUDGETS = ("p_pad", "nnz_pad", "elem_pad", "p_pads")
 
 
 @pytest.fixture
@@ -75,24 +79,26 @@ GRAPHS = {
 }
 
 
+def tiles_plan(monkeypatch):
+    """Both packages plan the first squaring in tiled row parts."""
+    monkeypatch.setattr("outerspace_tpu_torch.sched.planner.choose_strategy", lambda *a: "tiles")
+    monkeypatch.setattr("outerspace_tpu.sched.planner.choose_strategy", lambda *a: "tiles")
+
+
 @pytest.mark.parametrize("plan", ["auto", "tiles"])
 @pytest.mark.parametrize("graph", sorted(GRAPHS))
 def test_mcl_size_budgets_equal_jax(graph, plan, jax_weights, monkeypatch):
     jf, tf = flows(GRAPHS[graph]())
-    if plan == "tiles":  # both packages plan the first squaring in tiled row parts
-        monkeypatch.setattr("outerspace_tpu_torch.sched.planner.choose_strategy", lambda *a: "tiles")
-        monkeypatch.setattr("outerspace_tpu.sched.planner.choose_strategy", lambda *a: "tiles")
+    if plan == "tiles":
+        tiles_plan(monkeypatch)
     jprep, tprep = jg.mcl_prepare(jf, iters=4), tg.mcl_prepare(tf, iters=4, device="cpu")
     assert type(tprep["tplan"]).__name__ == type(jprep["tplan"]).__name__
-    layout = tg._stage1_stream_layout(tprep["tplan"])
-    assert layout == jg._stage1_stream_layout(jprep["tplan"])
     sweep = (jf.to_scipy().tocsr(), 2.0, 4, 1e-4)
-    assert tg._host_mcl_sizing_full(*sweep, stage1_layout=layout) == \
-        jg._host_mcl_sizing_full(*sweep, stage1_layout=layout)
     assert tg._host_mcl_sizing(*sweep) == jg._host_mcl_sizing(*sweep)
     jg.mcl_size(jprep)
     tg.mcl_size(tprep)
     assert {k: tprep[k] for k in BUDGETS} == {k: jprep[k] for k in BUDGETS}
+    assert "blk_caps" not in tprep
     assert tprep["sizing_key"] != jprep["sizing_key"]  # the port's keys carry their prefix
 
 
@@ -154,10 +160,10 @@ def test_markov_cluster_host_loops():
 
 def sabotaged(flow, iters, prepare=tg.mcl_prepare):
     """A prep sized by the sweep, then given an element budget too small
-    for the survivors, single-size, without caps."""
+    for the survivors, single-size."""
     prep = prepare(flow, iters=iters, device="cpu")
     tg.mcl_size(prep)
-    prep.update(elem_pad=4096, p_pads=None, blk_caps=None)
+    prep.update(elem_pad=4096, p_pads=None)
     return prep
 
 
@@ -170,7 +176,7 @@ def test_mcl_run_falls_back_when_ok_is_false(own_cache):
     out = tg.mcl_run(prep)
     assert_flow(out.to_csr(), tg.markov_cluster(tcoo(g), iters=3, backend="scipy"))
     assert prep["p_pad"] > before["p_pad"] and prep["elem_pad"] == 8192
-    assert prep["p_pads"] is None and prep["blk_caps"] is None
+    assert prep["p_pads"] is None
     stored = json.loads(own_cache.read_text())[prep["sizing_key"]]
     assert stored == {k: prep[k] for k in BUDGETS}
     # the doubled budgets hold: the next run takes the fast path
@@ -218,9 +224,9 @@ def test_warm_cache_and_torn_entry(own_cache, monkeypatch):
     assert {k: warm[k] for k in BUDGETS} == {k: cold[k] for k in BUDGETS}
     # torn entries cost speed only: schedules of the wrong length or a
     # corrupt value drop the schedule, a corrupt budget the entry
-    torn = run(lambda e: e.update(p_pads=e["p_pads"][:1], blk_caps="torn"))
-    assert not sweeps and torn["sizing_cached"]
-    assert torn["p_pads"] is None and torn["blk_caps"] is None
+    for tear in ({"p_pads": good[cold["sizing_key"]]["p_pads"][:1]}, {"p_pads": "torn"}):
+        torn = run(lambda e: e.update(tear))
+        assert not sweeps and torn["sizing_cached"] and torn["p_pads"] is None
     run(lambda e: e.update(nnz_pad=None))
     assert sweeps
     run(lambda e: e.pop("elem_pad"))  # elem_pad falls back to 4 x nnz_pad
@@ -235,7 +241,64 @@ def test_mcl_run_with_only_p_pad_and_nnz_pad():
     _, tf = flows(g)
     prep = tg.mcl_prepare(tf, iters=4, device="cpu")
     tg.mcl_size(prep)
-    for k in ("elem_pad", "p_pads", "blk_caps", "sizing_key"):
+    for k in ("elem_pad", "p_pads", "sizing_key"):
         prep.pop(k)
     assert_flow(tg.mcl_run(prep).to_csr(), tg.markov_cluster(tcoo(g), iters=4, backend="scipy"))
     assert prep["ran_with"]["elem_pad"] is None
+
+
+def cached_run(tf, entry, own_cache, monkeypatch, iters=4):
+    """A fresh prep's ``mcl_run`` from the sizing-cache ``entry``, with no
+    sweep: (the prep, the flow, the fallbacks counted)."""
+    probe = tg.mcl_prepare(tf, iters=iters, device="cpu")
+    own_cache.write_text(json.dumps({probe["sizing_key"]: entry}))
+    monkeypatch.setattr(tg, "mcl_size", lambda prep: pytest.fail("the sweep ran"))
+    before = timer.counters().get("mcl.fallbacks", 0)
+    out = tg.mcl_run(probe)
+    return probe, out.to_csr(), timer.counters().get("mcl.fallbacks", 0) - before
+
+
+@pytest.mark.parametrize("plan", ["auto", "tiles"])
+def test_mcl_run_stays_fast_where_jax_caps_fail(plan, jax_weights, monkeypatch, own_cache):
+    """Per-block survivor caps one below the most survivors a block of
+    each squaring's merged stream holds, as the JAX package's host sweep
+    counts them on its stage-1 layout: the JAX package's blocked
+    compaction would not be exact under them, and it would fall back.
+    The port checks no such bound: from an entry that carries those
+    caps, its run takes the fast path and equals scipy."""
+    g = rmat(8, edge_factor=8, seed=11)
+    jf, tf = flows(g)
+    if plan == "tiles":
+        tiles_plan(monkeypatch)
+    jprep = jg.mcl_prepare(jf, iters=4)
+    _, _, raw = jg._host_mcl_sizing_full(jf.to_scipy().tocsr(), 2.0, 4, 1e-4,
+                                         stage1_layout=jg._stage1_stream_layout(jprep["tplan"]))
+    tight = [c - 1 if c else 0 for c in raw]
+    assert sum(c > 0 for c in tight) >= 2  # the first squaring's and the loop's
+    sized = tg.mcl_prepare(tf, iters=4, device="cpu")
+    tg.mcl_size(sized)
+    prep, got, fallbacks = cached_run(tf, dict(tg._budgets(sized), blk_caps=tight), own_cache,
+                                      monkeypatch)
+    assert fallbacks == 0 and prep["ran_with"] == tg._budgets(sized)
+    assert type(prep["tplan"]).__name__ == type(jprep["tplan"]).__name__
+    assert_flow(got, tg.markov_cluster(tcoo(g), iters=4, backend="scipy"))
+
+
+def test_sizing_cache_entry_of_the_caps_format_loads(jax_weights, monkeypatch, own_cache):
+    """An entry as the sizing sweep stored it when it also set caps
+    (``p_pads`` and ``blk_caps``, the JAX package's margins over its
+    per-block maxima) loads to the budgets a cold sweep gives, with no
+    sweep, and runs the fast path."""
+    g = rmat(8, edge_factor=8, seed=12)
+    jf, tf = flows(g)
+    jprep = jg.mcl_prepare(jf, iters=4)
+    jg.mcl_size(jprep)
+    assert jprep["p_pads"] and jprep["blk_caps"]
+    cold = tg.mcl_prepare(tf, iters=4, device="cpu")
+    tg.mcl_size(cold)
+    entry = dict(tg._budgets(cold), blk_caps=list(jprep["blk_caps"]))
+    prep, got, fallbacks = cached_run(tf, entry, own_cache, monkeypatch)
+    assert prep["sizing_cached"] and fallbacks == 0
+    assert tg._budgets(prep) == prep["ran_with"] == tg._budgets(cold)
+    assert "blk_caps" not in prep
+    assert_flow(got, tg.markov_cluster(tcoo(g), iters=4, backend="scipy"))

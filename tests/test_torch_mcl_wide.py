@@ -133,7 +133,7 @@ def test_wide_run_with_starved_budgets_falls_back_exactly(wide, monkeypatch):
     flow = graph._mcl_setup(g)
     prep = graph.mcl_prepare(flow, iters=ITERS, device="cpu")
     # budgets far below the flow's: ok is false, the exact chain runs
-    prep.update(p_pad=8192, nnz_pad=1024, elem_pad=4096, p_pads=None, blk_caps=None)
+    prep.update(p_pad=8192, nnz_pad=1024, elem_pad=4096, p_pads=None)
     prep.pop("flow")
     seen = spy_key_dtypes(monkeypatch)
     before = timer.counters().get("mcl.fallbacks", 0)
@@ -163,32 +163,6 @@ def test_wide_stepwise_chain_is_exact(wide, monkeypatch):
                                             prune_threshold=1e-4).to_csr()
     assert len(steps) == ITERS - 1 and torch.int64 in seen["k2"]
     assert_flows_equal(got, want)
-
-
-def test_wide_loop_iteration_fill_equals_gather():
-    """Where a wide flow's ``elem_pad`` is small enough for the fill
-    join's 32-bit internal keys (starved budgets; "auto" on the CPU takes
-    it), its int64 output equals the gather join's."""
-    rng = np.random.default_rng(7)
-    m, nnz, elem_pad = 70_000, 1500, 32_768
-    cols = rng.integers(0, 150, nnz) * 463  # 150 columns spread over the 70,000
-    rows = rng.integers(0, 150, nnz) * 463
-    rows[:150], cols[:150] = np.arange(150) * 463, np.arange(150) * 463  # their diagonals
-    flat = np.unique(cols.astype(np.int64) * m + rows)
-    vals = rng.uniform(0.1, 1.0, flat.size).astype(np.float32)
-    kcsc, vals = chain._to_csc_state(torch.from_numpy((flat % m).astype(np.int32)),
-                                     torch.from_numpy((flat // m).astype(np.int32)),
-                                     torch.from_numpy(vals), torch.ones(flat.size, dtype=torch.bool),
-                                     p_pad=elem_pad, m=m)
-    assert kcsc.dtype == torch.int64 and chain._fill_pack_ok(elem_pad, m)
-    state = (kcsc, vals, chain._column_starts(kcsc, m), torch.ones((), dtype=torch.bool))
-    kw = dict(p_pad=1 << 17, elem_pad=elem_pad, m=m, inflation=2.0, threshold=1e-4)
-    fill = chain._mcl_iteration(state, join="fill", **kw)
-    gather = chain._mcl_iteration(state, join="gather", **kw)
-    assert bool(fill[3]) and bool(gather[3])
-    assert fill[0].dtype == torch.int64 and torch.equal(fill[0], gather[0])
-    assert torch.equal(fill[2], gather[2])
-    torch.testing.assert_close(fill[1], gather[1], rtol=1e-5, atol=1e-7)
 
 
 # ---- the 64-bit plain versions against scalar walks ---------------------------
@@ -269,29 +243,31 @@ def prune_stream(seed, L, n_valid, n_surv, m=M_WIDE):
     return rows, cols, vals, valid
 
 
-def prune_scalar_walk(rows, cols, vals, valid, *, m, elem_pad, cap):
-    keys, vs, per_block = [], [], {}
+def prune_scalar_walk(rows, cols, vals, valid, *, m, elem_pad):
+    keys, vs = [], []
     for i in range(rows.shape[0]):
         r = max(float(vals[i]), 0.0)
         if valid[i] and np.float32(r) > np.float32(THR):
             keys.append(int(cols[i]) * m + int(rows[i]))
             vs.append(np.float32(r))
-            per_block[i // compact.CAP_BLOCK] = per_block.get(i // compact.CAP_BLOCK, 0) + 1
     kp = np.full(elem_pad, I64_MAX, np.int64)
     vp = np.zeros(elem_pad, np.float32)
     kp[:min(len(keys), elem_pad)] = keys[:elem_pad]
     vp[:min(len(vs), elem_pad)] = vs[:elem_pad]
-    ok = len(keys) <= elem_pad and (cap == 0 or max(per_block.values(), default=0) <= cap)
-    return kp, vp, ok
+    return kp, vp, len(keys) <= elem_pad
 
 
-@pytest.mark.parametrize("elem_pad,cap,ok", [(4096, 0, True), (1000, 0, False), (4096, 500, True),
-                                             (4096, 300, False)])
-def test_prune_compact_plain_64_bit_equals_a_scalar_walk(elem_pad, cap, ok):
-    arrays = prune_stream(3, 3 * compact.CAP_BLOCK + 77, 3000, 1200)
+# (elem_pad, ok) around the stream's 1,200 survivors
+BOUNDARIES = [(4096, True), (1000, False), (1200, True), (1199, False)]
+TILE = 8192  # the kernel's tile of slots
+
+
+@pytest.mark.parametrize("elem_pad,ok", BOUNDARIES)
+def test_prune_compact_plain_64_bit_equals_a_scalar_walk(elem_pad, ok):
+    arrays = prune_stream(3, 3 * TILE + 77, 3000, 1200)
     t = [torch.from_numpy(a) for a in arrays]
-    kp, vp, got_ok = compact.prune_compact(*t, thr_root=THR, m=M_WIDE, elem_pad=elem_pad, cap=cap)
-    want = prune_scalar_walk(*arrays, m=M_WIDE, elem_pad=elem_pad, cap=cap)
+    kp, vp, got_ok = compact.prune_compact(*t, thr_root=THR, m=M_WIDE, elem_pad=elem_pad)
+    want = prune_scalar_walk(*arrays, m=M_WIDE, elem_pad=elem_pad)
     assert kp.dtype == torch.int64 and bool(got_ok) == want[2] == ok
     np.testing.assert_array_equal(kp.numpy(), want[0])
     np.testing.assert_array_equal(vp.numpy(), want[1])
@@ -302,7 +278,7 @@ def test_prune_compact_plain_64_bit_equals_a_scalar_walk(elem_pad, cap, ok):
                                      (65_536, torch.int64), (M_WIDE, torch.int64)])
 def test_prune_compact_keys_take_64_bits_from_m_squared_2e32(m, dtype):
     t = [torch.from_numpy(a) for a in prune_stream(4, 4096, 200, 50, m=m)]
-    kp, _, _ = compact.prune_compact(*t, thr_root=THR, m=m, elem_pad=1024, cap=0)
+    kp, _, _ = compact.prune_compact(*t, thr_root=THR, m=m, elem_pad=1024)
     assert kp.dtype == dtype == compact.key_dtype(m)
     assert int(kp.max()) == (I64_MAX if dtype == torch.int64 else I32_MAX)
 
@@ -363,17 +339,17 @@ def test_k2_64_kernel_bit_equal_to_plain(cuda, n, pad, offset):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("elem_pad,cap", [(4096, 0), (1000, 0), (4096, 500), (4096, 300)])
-def test_prune_compact_64_kernel_bit_equal_to_plain(cuda, elem_pad, cap):
-    arrays = prune_stream(5, 3 * compact.CAP_BLOCK + 77, 3000, 1200)
+@pytest.mark.parametrize("elem_pad,ok", BOUNDARIES)
+def test_prune_compact_64_kernel_bit_equal_to_plain(cuda, elem_pad, ok):
+    arrays = prune_stream(5, 3 * TILE + 77, 3000, 1200)
     t = [torch.from_numpy(a).to(cuda) for a in arrays]
-    kw = dict(thr_root=THR, m=M_WIDE, elem_pad=elem_pad, cap=cap)
+    kw = dict(thr_root=THR, m=M_WIDE, elem_pad=elem_pad)
     before = (compact.KERNEL.launches, compact.KERNEL_64.launches)
     raw = compact.prune_compact(*t, **kw)
     plain = compact.prune_compact_plain(*t, **kw)
     torch.cuda.synchronize()
     assert (compact.KERNEL.launches, compact.KERNEL_64.launches) == (before[0], before[1] + 1)
-    assert raw[0].dtype == torch.int64 and bool(raw[2]) == bool(plain[2])
+    assert raw[0].dtype == torch.int64 and bool(raw[2]) == bool(plain[2]) == ok
     n_real = int((raw[0] != I64_MAX).sum())
     assert not (raw[0][n_real:] != I64_MAX).any() and not raw[1][n_real:].any()
     if bool(plain[2]):  # the kernel writes in any order; sorted, the two agree bit for bit

@@ -1,11 +1,15 @@
 """The prune and compaction after the MCL chain's first squaring
 (``outerspace_tpu_torch/ops/kernels/compact.py``): the plain version,
 sorted as the chain sorts it, against a numpy statement of the chain's
-compaction and against the chain's compaction before the kernel on
-random merged streams, and, on the card (marker ``cuda``; skipped
-without one), the CUDA kernel bit-equal to the plain version, its
-refusal of unaligned streams, and ``mcl_run`` launching it once a run.
-This file imports neither JAX nor the JAX package:
+compaction, against the chain's compaction before the kernel and, where
+the JAX package imports, against its ``compact_masked_stream`` with a
+cap that bounds nothing, on random merged streams with the survivors
+below, at and past ``elem_pad``; ``ok`` at exactly ``elem_pad``
+survivors and at one more, for both key widths; and, on the card
+(marker ``cuda``; skipped without one), the CUDA kernel bit-equal to the
+plain version, its refusal of unaligned streams, and ``mcl_run``
+launching it once a run. The file needs neither JAX nor the JAX
+package:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_prune_compact.py
 """
@@ -20,7 +24,8 @@ from outerspace_tpu_torch.ops.kernels import compact
 from outerspace_tpu_torch.ops.spgemm import pack_key_biased
 
 I32_MAX = 2**31 - 1
-CAP_BLOCK = 8192
+I64_MAX = 2**63 - 1
+TILE = 8192  # the kernel's tile of slots
 M = 3000
 THR = float(np.float32(1e-2))
 
@@ -54,10 +59,10 @@ def merged_stream(seed, L, n_valid, n_surv, *, edges=False):
     return rows, cols, vals, valid
 
 
-def expected(rows, cols, vals, valid, *, elem_pad, cap):
+def expected(rows, cols, vals, valid, *, elem_pad):
     """The chain's compaction in numpy: survivors valid & max(v, 0) > thr,
     keys (col·m + row) ^ 2³¹ as int32, sorted, sentinel-padded; ok from
-    the total and the per-block counts."""
+    the total."""
     vr = np.where(vals < 0, np.float32(0), vals)
     surv = valid & (vr > np.float32(THR))
     idx = np.flatnonzero(surv)
@@ -69,25 +74,36 @@ def expected(rows, cols, vals, valid, *, elem_pad, cap):
     take = min(len(idx), elem_pad)
     kp[:take], vp[:take] = keys[order][:take], vr[idx][order][:take]
     ok = len(idx) <= elem_pad
-    if cap:
-        ok &= np.bincount(idx // CAP_BLOCK, minlength=1).max(initial=0) <= cap
     return kp, vp, bool(ok), dict(zip(keys.tolist(), vr[idx].tolist()))
 
 
-def before_kernel(rows, cols, vals, valid, *, elem_pad, cap):
+def before_kernel(rows, cols, vals, valid, *, elem_pad):
     """The chain's compaction as ``mcl_whole_traced`` ran it before the
-    kernel: the prune and the keys over every slot, then the blocked
-    compaction with a cap, else a compaction in stream order, and a
-    sort."""
+    kernel: the prune and the keys over every slot, then a compaction in
+    stream order and a sort. Also returns the keys before the compaction."""
     v_raw = torch.where(valid, torch.clamp(vals, min=0.0), 0.0)
     survive = valid & (v_raw > THR)
     kcsc = torch.where(survive, pack_key_biased(cols, rows, M), I32_MAX)
     ok = survive.sum() <= elem_pad
-    if cap:
-        kp, vp, ok_cap = chain.compact_masked_stream(kcsc, v_raw, elem_pad, cap=cap)
-        return kp, vp, ok & ok_cap
     return (*chain._sort_pair(*chain._to_front(survive, elem_pad, (kcsc, I32_MAX),
-                                               (v_raw, 0.0))), ok)
+                                               (v_raw, 0.0))), ok), (kcsc, v_raw)
+
+
+def jax_compaction(kcsc, v_raw, elem_pad):
+    """The JAX package's ``compact_masked_stream`` of the masked stream,
+    its cap the whole block (no bound), or None where JAX does not
+    import (the card's machine)."""
+    try:
+        import jax.numpy as jnp
+
+        from outerspace_tpu.ops import chain as jc
+    except ImportError:
+        return None
+    v_masked = torch.where(kcsc != I32_MAX, v_raw, 0.0)  # masked slots' values 0
+    k, v, ok = jc.compact_masked_stream(jnp.asarray(kcsc.numpy()), jnp.asarray(v_masked.numpy()),
+                                        elem_pad, cap=TILE)
+    assert bool(ok)  # no block holds more than all of its slots
+    return torch.from_numpy(np.array(k)), torch.from_numpy(np.array(v))
 
 
 def sorted_out(out):
@@ -96,44 +112,30 @@ def sorted_out(out):
     return (*chain._sort_pair(out[0], out[1]), out[2])
 
 
-def block_counts(valid, vals):
-    surv = valid & (np.where(vals < 0, 0, vals) > np.float32(THR))
-    return np.bincount(np.flatnonzero(surv) // CAP_BLOCK, minlength=1)
-
-
-L = 5 * CAP_BLOCK + 1234  # a ragged last block
-# name: (seed, valid slots, survivors, edges, elem_pad, cap: None for the
-# stream's own block maximum, "-1" for one less, which one block exceeds,
-# else the number)
+L = 5 * TILE + 1234  # a ragged last tile
+# name: (seed, valid slots, survivors, edges, elem_pad)
 CASES = {
-    "cap_ok": (1, 9000, 700, False, 1024, None),
-    "cap_exceeded_by_one_block": (2, 9000, 700, False, 1024, "-1"),
-    "over_elem_pad": (3, 9000, 1500, False, 1024, 0),
-    "no_cap": (4, 9000, 700, False, 1024, 0),
-    "no_survivors": (5, 9000, 0, False, 1024, 0),
-    "negative_zero_at_threshold": (6, 9000, 300, True, 1024, None),
+    "below_elem_pad": (1, 9000, 700, False, 1024),
+    "exactly_elem_pad": (2, 9000, 1024, False, 1024),
+    "one_over_elem_pad": (4, 9000, 1025, False, 1024),
+    "over_elem_pad": (3, 9000, 1500, False, 1024),
+    "no_survivors": (5, 9000, 0, False, 1024),
+    "negative_zero_at_threshold": (6, 9000, 300, True, 1024),
 }
 
 
 def case_stream(name):
-    seed, n_valid, n_surv, edges, elem_pad, cap = CASES[name]
-    rows, cols, vals, valid = merged_stream(seed, L, n_valid, n_surv, edges=edges)
-    counts = block_counts(valid, vals)
-    if cap is None:
-        cap = int(counts.max())
-    elif cap == "-1":
-        cap = int(counts.max()) - 1
-        assert (counts > cap).sum() == 1
-    return (rows, cols, vals, valid), elem_pad, cap
+    seed, n_valid, n_surv, edges, elem_pad = CASES[name]
+    return merged_stream(seed, L, n_valid, n_surv, edges=edges), elem_pad
 
 
 def tensors(arrays, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
-def check_against_expected(got, arrays, elem_pad, cap):
+def check_against_expected(got, arrays, elem_pad):
     kp, vp, ok = (x.cpu() for x in got)
-    want_k, want_v, want_ok, by_key = expected(*arrays, elem_pad=elem_pad, cap=cap)
+    want_k, want_v, want_ok, by_key = expected(*arrays, elem_pad=elem_pad)
     assert kp.shape == (elem_pad,) and vp.shape == (elem_pad,)  # nothing past elem_pad
     assert ok.dim() == 0 and bool(ok) == want_ok
     if want_ok:
@@ -150,17 +152,21 @@ def check_against_expected(got, arrays, elem_pad, cap):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_plain_equals_the_chains_compaction(name):
-    arrays, elem_pad, cap = case_stream(name)
+    arrays, elem_pad = case_stream(name)
     t = tensors(arrays)
-    raw = compact.prune_compact(*t, thr_root=THR, m=M, elem_pad=elem_pad, cap=cap)
+    raw = compact.prune_compact(*t, thr_root=THR, m=M, elem_pad=elem_pad)
     got = sorted_out(raw)
-    ok = check_against_expected(got, arrays, elem_pad, cap)
-    assert ok == (name not in ("cap_exceeded_by_one_block", "over_elem_pad"))
-    old = before_kernel(*t, elem_pad=elem_pad, cap=cap)
+    ok = check_against_expected(got, arrays, elem_pad)
+    assert ok == (name not in ("one_over_elem_pad", "over_elem_pad"))
+    old, masked = before_kernel(*t, elem_pad=elem_pad)
     assert bool(old[2]) == ok
     if ok:
         assert torch.equal(got[0], old[0])
         assert torch.equal(got[1].view(torch.int32), old[1].view(torch.int32))
+        jax_out = jax_compaction(*masked, elem_pad)
+        if jax_out is not None:
+            assert torch.equal(got[0], jax_out[0])
+            assert torch.equal(got[1].view(torch.int32), jax_out[1].view(torch.int32))
     # unsorted: the first elem_pad survivors in stream order, then the sentinel tail
     n_real = int((raw[0] != I32_MAX).sum())
     assert (raw[0][:n_real] != I32_MAX).all() and not raw[1][n_real:].any()
@@ -169,9 +175,39 @@ def test_plain_equals_the_chains_compaction(name):
     np.testing.assert_array_equal(raw[1][:n_real].numpy(), vr[first])
 
 
+@pytest.mark.parametrize("m", [M, 70_000], ids=["int32", "int64"])
+@pytest.mark.parametrize("extra", [0, 1], ids=["exactly_elem_pad", "one_more"])
+def test_plain_ok_at_the_elem_pad_boundary(m, extra):
+    """``elem_pad`` survivors fit: ``ok`` holds and every one is kept;
+    one more does not: ``ok`` is false and the first ``elem_pad`` in
+    stream order are kept. Both key widths (m² ≥ 2³² keys int64)."""
+    elem_pad = 777
+    rng = np.random.default_rng(extra + m)
+    slots = 3 * TILE + 5
+    pos = np.sort(rng.choice(slots, size=elem_pad + extra + 400, replace=False))
+    surv = np.sort(rng.choice(pos, size=elem_pad + extra, replace=False))
+    flat = np.sort(rng.choice(m * m, size=pos.size, replace=False))
+    rows, cols = np.full(slots, m, np.int32), np.zeros(slots, np.int32)
+    rows[pos], cols[pos] = flat // m, flat % m
+    vals = np.zeros(slots, np.float32)
+    vals[pos] = THR / 2
+    vals[surv] = rng.uniform(THR, 1.0, surv.size).astype(np.float32) + np.float32(1e-6)
+    valid = np.zeros(slots, bool)
+    valid[pos] = True
+    kp, vp, ok = compact.prune_compact_plain(*tensors((rows, cols, vals, valid)), thr_root=THR,
+                                             m=m, elem_pad=elem_pad)
+    wide = m * m >= 2**32
+    assert kp.dtype == (torch.int64 if wide else torch.int32) and bool(ok) == (extra == 0)
+    take = surv[:elem_pad]
+    u = cols[take].astype(np.int64) * m + rows[take]
+    want = u if wide else (u ^ 2**31).astype(np.uint32).view(np.int32)
+    np.testing.assert_array_equal(kp.numpy(), want)
+    np.testing.assert_array_equal(vp.numpy(), vals[take])
+
+
 def test_wrapper_checks_its_streams():
     rows, cols, vals, valid = tensors(merged_stream(7, 4096, 100, 10))
-    kw = dict(thr_root=THR, m=M, elem_pad=1024, cap=0)
+    kw = dict(thr_root=THR, m=M, elem_pad=1024)
     with pytest.raises(TypeError):
         compact.prune_compact(rows.long(), cols, vals, valid, **kw)
     with pytest.raises(TypeError):
@@ -199,9 +235,9 @@ def cuda():
 def test_kernel_bit_equal_to_plain(cuda, name):
     """The kernel against the plain version on the same stream, on the
     card, each sorted as the chain sorts it."""
-    arrays, elem_pad, cap = case_stream(name)
+    arrays, elem_pad = case_stream(name)
     t = tensors(arrays, cuda)
-    kw = dict(thr_root=THR, m=M, elem_pad=elem_pad, cap=cap)
+    kw = dict(thr_root=THR, m=M, elem_pad=elem_pad)
     before = compact.KERNEL.launches
     raw = compact.prune_compact(*t, **kw)
     plain = sorted_out(compact.prune_compact_plain(*t, **kw))
@@ -209,7 +245,7 @@ def test_kernel_bit_equal_to_plain(cuda, name):
     torch.cuda.synchronize()
     assert compact.KERNEL.launches == before + 1
     assert bool(got[2]) == bool(plain[2])
-    ok = check_against_expected(got, arrays, elem_pad, cap)
+    ok = check_against_expected(got, arrays, elem_pad)
     if ok:
         assert torch.equal(got[0], plain[0])
         assert torch.equal(got[1].view(torch.int32), plain[1].view(torch.int32))
@@ -224,9 +260,9 @@ def test_kernel_bit_equal_to_plain(cuda, name):
 def test_kernel_refuses_unaligned_streams(cuda):
     """vals must start 16-byte and valid 4-byte aligned (the kernel's
     vector loads); the wrapper raises before any launch."""
-    arrays, elem_pad, cap = case_stream("no_cap")
+    arrays, elem_pad = case_stream("below_elem_pad")
     t = tensors(arrays, cuda)
-    kw = dict(thr_root=THR, m=M, elem_pad=elem_pad, cap=cap)
+    kw = dict(thr_root=THR, m=M, elem_pad=elem_pad)
     before = compact.KERNEL.launches
     for offset in (1, 2, 3):
         with pytest.raises(ValueError, match="aligned"):

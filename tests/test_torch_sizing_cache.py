@@ -13,8 +13,7 @@ from outerspace_tpu.sched import sizing_cache as jsc
 from outerspace_tpu_torch.sched import sizing_cache as tsc
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SIZES = {"p_pad": 4096, "nnz_pad": 1024, "elem_pad": 4096, "p_pads": [8192, 4096, 4096],
-         "blk_caps": [640, 512, 512, 512]}
+SIZES = {"p_pad": 4096, "nnz_pad": 1024, "elem_pad": 4096, "p_pads": [8192, 4096, 4096]}
 
 
 @pytest.fixture
@@ -36,8 +35,8 @@ def test_store_lookup_round_trip(cache):
     tsc.store(key, SIZES)
     assert tsc.lookup(key) == SIZES
     assert tsc.lookup("absent") is None
-    tsc.store(key, dict(SIZES, p_pads=None, blk_caps=None))
-    assert tsc.lookup(key)["p_pads"] is None and tsc.lookup(key)["blk_caps"] is None
+    tsc.store(key, dict(SIZES, p_pads=None))
+    assert tsc.lookup(key)["p_pads"] is None
     # the JAX package reads the same file format
     assert jsc.lookup(key) == tsc.lookup(key)
     # atomic: one file, no temporary left behind
@@ -53,7 +52,7 @@ def test_torn_entries_are_dropped(cache):
     d[key].update(p_pad="corrupt", nnz_pad=None, elem_pad=True, p_pads=[1, "x"])
     d["other"] = [1, 2]
     cache.write_text(json.dumps(d))
-    assert tsc.lookup(key) == {"blk_caps": SIZES["blk_caps"]}
+    assert tsc.lookup(key) == {}
     assert tsc.lookup("other") is None
     cache.write_text('{"k": {"p_pad": 40')  # torn write
     assert tsc.lookup(key) is None
