@@ -25,24 +25,26 @@ checking every result exactly against scipy:
   seed=7), 4 iterations): cold, warm and cached ``mcl_run``, the exact
   fallbacks and a tiled first squaring, each against scipy's MCL with
   the cluster sets equal; a warm run's launches (the first squaring's
-  K1 / K2, prune_compact once, then K2 once plus twice and loop_expand
-  once per loop iteration) and host reads (at most 2) counted; K2 held
-  to its plain version on the loop's streams, and loop_expand bit for
-  bit on the loop's largest expand, timed beside its bound and the plain
-  version's time;
+  K1 / K2, prune_compact once, then K2 once plus twice, loop_expand and
+  loop_compact once per loop iteration) and host reads (at most 2)
+  counted; K2 held to its plain version on the loop's streams, and
+  loop_expand and loop_compact bit for bit on the loop's largest expand
+  and compaction, timed beside their bounds and the plain versions'
+  times;
 - the prune and compaction after the MCL chain's first squaring at the
   shape of the benchmark's rmat15_ef16.mcl4 cell (its graph from the
   benchmark's generator): the merged stream's slots, valid slots and
   survivors, the kernel bit-equal to its plain version, its time beside
   its bound (5 B a slot) and the plain version's;
 - the 64-bit-key kernels (n² ≥ 2³²) at the shapes of the benchmark's
-  lfr19_k20_mu03.mcl4 cell: a warm ``mcl_run``'s launches (K2_64 and
-  loop_expand_64 once a loop iteration, prune_compact_64 once, the
-  32-bit prune_compact and loop_expand never); prune_compact_64 on its
-  first squaring's stream and loop_expand_64 on its largest loop expand
-  bit-equal to their plain versions and K2_64 on its largest loop merge
-  equal to its plain version, each timed beside its bound and the plain
-  version's time;
+  lfr19_k20_mu03.mcl4 cell: a warm ``mcl_run``'s launches (K2_64,
+  loop_expand_64 and loop_compact_64 once a loop iteration,
+  prune_compact_64 once, the 32-bit prune_compact, loop_expand and
+  loop_compact never); prune_compact_64 on its first squaring's stream,
+  loop_expand_64 on its largest loop expand and loop_compact_64 on its
+  largest loop compaction bit-equal to their plain versions and K2_64 on
+  its largest loop merge equal to its plain version, each timed beside
+  its bound and the plain version's time;
 - sparse-NN inference: ``SparseMLP`` (MLP1w 784-1000-1000-10, pruned to
   1%) at batch 1024 and ``SparseLeNet`` (pruned LeNet) at batch 256, with
   the committed trained weights, each serving four requests through K5
@@ -276,6 +278,10 @@ _FAMILIES = (("K2_64", "::scan_tile_kernel_wide"), ("K2_64 carry", "::scan_carry
              ("prune_compact_64 tail", "::prune_compact_tail_wide"),
              ("loop_expand_64", "::loop_expand_kernel_wide"),
              ("loop_expand", "::loop_expand_kernel"),
+             ("loop_compact_64", "::loop_compact_kernel_wide"),
+             ("loop_compact_64 fill", "::loop_compact_fill_wide"),
+             ("loop_compact", "::loop_compact_kernel"),
+             ("loop_compact fill", "::loop_compact_fill"),
              ("K1", "::gexpand_kernel"), ("K2", "::scan_tile_kernel"),
              ("K2 carry", "::scan_carry_kernel"), ("K3", "::expand_kernel<true>"),
              ("K4", "::expand_kernel<false>"), ("K5", "::spmm_kernel"),
@@ -583,6 +589,55 @@ def _loop_expand_row(torch, loop_expand, args, kw, spin, label: str) -> dict:
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound, "by": by}
 
 
+def _loop_compact_row(torch, compact, args, kw, spin, label: str) -> dict:
+    """``loop_compact`` on one loop compaction caught from a warm run
+    (``args``, ``kw`` as the chain passed them): held bit for bit to its
+    plain version, keys and values as bits and ``ok`` too, then timed
+    (device-only CUDA events; with the host's launch; the profiler)
+    beside its bound and the plain version's time. The bound reads each
+    merged slot's value and valid byte once (5 B) and, for each
+    survivor, its key once, and writes each survivor's key and value
+    once. Returns the numbers of its row of the ``kernels`` line,
+    ``err`` the values' max |kernel − plain|."""
+    key, vals, valid = args
+    name = "loop_compact_64" if key.dtype == torch.int64 else "loop_compact"
+    got = compact.loop_compact(*args, **kw)
+    want = compact.loop_compact_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got[1] - want[1]).abs().max())
+    if got[0].dtype != key.dtype or not (
+            torch.equal(got[0], want[0]) and bool(got[2]) == bool(want[2])
+            and torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))):
+        raise RuntimeError(f"{name} differs from its plain version on {label} (values max "
+                           f"|err| {err:.3e}, ok {bool(got[2])} / {bool(want[2])}; want "
+                           f"bit-equal)")
+    if not bool(got[2]):
+        raise RuntimeError(f"{name}: the survivors of {label} do not fit elem_pad")
+    del got, want
+    torch.cuda.empty_cache()
+    slots = key.numel()
+    survivors = int((valid & (torch.clamp(vals, min=0.0) > kw["thr_root"])).sum())
+    key_b = key.element_size()
+    kernel = lambda: compact.loop_compact(*args, **kw)  # noqa: E731
+    ms = _device_ms(torch, kernel, spin)
+    host_ms = _median_ms(torch, kernel)
+    plain_ms = _median_ms(torch, lambda: compact.loop_compact_plain(*args, **kw), reps=3,
+                          warmup=1)
+    prof = _profile_line(torch, f"{name}, {label}", kernel)
+    prof_txt = (f"{prof[name] + prof.get(name + ' fill', 0.0):.4f} ms profiler (main pass "
+                f"{prof[name]:.4f}, fill {prof.get(name + ' fill', 0.0):.4f})"
+                if name in prof else "profiler not measured")
+    bound, by = _bound(5 * slots + (2 * key_b + 4) * survivors, 0)
+    slot_bound = _bound(5 * slots, 0)[0]
+    print(f"{name} on {label} ({slots:,} slots, {survivors:,} survive, elem_pad "
+          f"{kw['elem_pad']:,}): == plain bit for bit (ok too); {ms:.4f} ms device-only events, "
+          f"{host_ms:.4f} ms with the host's launch, {prof_txt}; {100 * bound / ms:.1f}% of its "
+          f"{bound:.4f} ms bound (5 B a slot, {2 * key_b + 4} B a survivor, at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; 5 B a slot alone {slot_bound:.4f} ms, "
+          f"{100 * slot_bound / ms:.1f}%); the plain version {plain_ms:.4f} ms")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound, "by": by}
+
+
 def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     """Markov clustering on mcl_rmat14_4iter (the JAX bench's
     ``bench_mcl``: rmat(14, edge_factor=8, seed=7) with self loops and
@@ -592,18 +647,20 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     reads counted; the stepwise and fused fallbacks, a forced fallback,
     a tiled first squaring (K3) and ``square_device`` exact; K1 and K3
     held to their plain versions on the first squaring's plans, K2 on
-    the loop's streams and loop_expand on the loop's largest expand (bit
-    for bit, timed beside its bound); times. Returns the K1, K2,
-    prune_compact and loop_expand launches of one warm run, loop_expand's
-    numbers for its row of the ``kernels`` line and the warm run itself
-    (``"run"``), which ``main`` traces with the profiler last."""
+    the loop's streams, loop_expand on the loop's largest expand and
+    loop_compact on its largest compaction (bit for bit, timed beside
+    their bounds); times. Returns the K1, K2, prune_compact, loop_expand
+    and loop_compact launches of one warm run, loop_expand's and
+    loop_compact's numbers for their rows of the ``kernels`` line and the
+    warm run itself (``"run"``), which ``main`` traces with the profiler
+    last."""
     import importlib
     import os
     import warnings
 
     from outerspace_tpu_torch.formats import rmat
     from outerspace_tpu_torch.ops import chain, graph
-    from outerspace_tpu_torch.ops.kernels import expand, gexpand, loop_expand, scan
+    from outerspace_tpu_torch.ops.kernels import compact, expand, gexpand, loop_expand, scan
     from outerspace_tpu_torch.ops.reference import assert_csr_allclose, spgemm_scipy
     from outerspace_tpu_torch.ops.spgemm import MergedCOO, plan_tiled_parts
 
@@ -691,7 +748,8 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     # an rmat14 flow keeps 32-bit keys: no 64-bit instantiation launches
     want_counts = dict(stage1, K2=stage1["K2"] + 1 + 2 * (MCL_ITERS - 1), K4=0, K5=0,
                        prune_compact=1, K2_64=0, prune_compact_64=0,
-                       loop_expand=MCL_ITERS - 1, loop_expand_64=0)
+                       loop_expand=MCL_ITERS - 1, loop_expand_64=0,
+                       loop_compact=MCL_ITERS - 1, loop_compact_64=0)
     if counts != want_counts:
         raise RuntimeError(f"warm mcl_run launches {counts}, want {want_counts}")
     if len(syncs) > 2:
@@ -711,8 +769,8 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     print(f"mcl_rmat14_4iter warm mcl_run: final nnz {got.nnz} == scipy, structure exact, values "
           f"within rtol {MCL_RTOL} atol {MCL_ATOL}, {len(want_clusters)} cluster sets equal; "
           f"launches per run {counts} (the first squaring's {stage1}, then prune_compact once "
-          f"and K2 once for its column sums, loop_expand once and K2 twice per loop "
-          f"iteration); host reads "
+          f"and K2 once for its column sums, loop_expand, loop_compact once and K2 twice "
+          f"per loop iteration); host reads "
           f"{len(syncs)} (`ok`; nnz is read by to_csr)")
     _phase("mcl main path", t0)
 
@@ -776,13 +834,13 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
           f"path {tiled['ran_with']['p_pad'] == tiled['p_pad']}) == scipy's MCL")
     _phase("mcl fallbacks and K1 / K3 check", t1)
 
-    # K2 on the loop's streams and the loop's largest expand: caught from
-    # one warm run, against plain
+    # K2 on the loop's streams, the loop's largest expand and its largest
+    # compaction: caught from one warm run, against plain
     t1 = time.perf_counter()
-    calls, expands = [], []
+    calls, expands, compactions = [], [], []
     # the module (the package's ``spgemm`` name is the function)
     spgemm_mod = importlib.import_module("outerspace_tpu_torch.ops.spgemm")
-    real, real_le = spgemm_mod.merge_epilogue_scan, chain.loop_expand
+    real, real_le, real_lc = spgemm_mod.merge_epilogue_scan, chain.loop_expand, chain.loop_compact
 
     def catch(key, vals, pad_count, *, n_cols, sentinel_row):
         calls.append((key.clone(), vals.clone(), pad_count, n_cols, sentinel_row))
@@ -793,11 +851,18 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
             expands[:] = [(tuple(t.clone() for t in args), dict(p_pad=p_pad, m=m))]
         return real_le(*args, p_pad=p_pad, m=m)
 
-    spgemm_mod.merge_epilogue_scan, chain.loop_expand = catch, catch_le
+    def catch_lc(*args, **kw):
+        if not compactions or args[0].numel() > compactions[0][0][0].numel():
+            compactions[:] = [(tuple(t.clone() for t in args), kw)]
+        return real_lc(*args, **kw)
+
+    spgemm_mod.merge_epilogue_scan, chain.loop_expand, chain.loop_compact = (
+        catch, catch_le, catch_lc)
     try:
         graph.mcl_run(prep)
     finally:
-        spgemm_mod.merge_epilogue_scan, chain.loop_expand = real, real_le
+        spgemm_mod.merge_epilogue_scan, chain.loop_expand, chain.loop_compact = (
+            real, real_le, real_lc)
     loop = calls[stage1["K2"] + 1:]
     streams = {"loop merge (n_cols = n)": loop[0], "column sums (n_cols = 1)": loop[1]}
     if loop[0][3] != n or loop[1][3] != 1:
@@ -827,7 +892,9 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     t1 = time.perf_counter()
     le_row = _loop_expand_row(torch, loop_expand, *expands.pop(), spin,
                               "mcl_rmat14_4iter's largest loop expand")
-    _phase("mcl loop_expand check", t1)
+    lc_row = _loop_compact_row(torch, compact, *compactions.pop(), spin,
+                               "mcl_rmat14_4iter's largest loop compaction")
+    _phase("mcl loop_expand and loop_compact check", t1)
 
     # times: host clock around work that ends in a synchronise, median of 3
     t1 = time.perf_counter()
@@ -861,6 +928,7 @@ def _mcl_phase(torch, np, dev, kernels, spin) -> dict:
     # dropped device activity
     return {"K1": counts["K1"], "K2": counts["K2"], "prune_compact": counts["prune_compact"],
             "loop_expand": counts["loop_expand"], "loop_expand row": le_row,
+            "loop_compact": counts["loop_compact"], "loop_compact row": lc_row,
             "run": lambda: graph.mcl_run(prep),
             "K1 err": k1_mcl_err, "K3 err": k3_mcl_err, "K4 err": k4_mcl_err,
             "clusters": len(want_clusters), "graph": g, "want": want,
@@ -972,7 +1040,8 @@ def _wide_phase(torch, np, dev, kernels) -> dict:
     its launches counted (the 64-bit instantiations on the wide path,
     the 32-bit prune-and-compact and expand kernels not at all), whose first
     squaring's merged stream (``prune_compact_64``), largest loop merge
-    (``K2_64``) and largest loop expand (``loop_expand_64``) are caught.
+    (``K2_64``), largest loop expand (``loop_expand_64``) and largest loop
+    compaction (``loop_compact_64``) are caught.
     Each kernel is held to its plain version on its stream: the prune and
     compaction bit for bit (sorted as the chain sorts it, ``ok`` too),
     the expand bit for bit, the merge's structure and nnz exactly and its
@@ -980,7 +1049,8 @@ def _wide_phase(torch, np, dev, kernels) -> dict:
     another order). Then each is timed (device-only CUDA events; with the
     host's launch; the profiler) beside its bound: K2_64 25 B a slot,
     prune_compact_64 5 B a slot and 20 B a survivor, loop_expand_64 12 B
-    a slot written and 20 B a stream element read. Returns the kernels' numbers
+    a slot written and 20 B a stream element read, loop_compact_64 5 B a
+    slot and 20 B a survivor. Returns the kernels' numbers
     for their rows of the ``kernels`` line, and the warm run's
     launches."""
     import importlib
@@ -1007,8 +1077,9 @@ def _wide_phase(torch, np, dev, kernels) -> dict:
     t0 = time.perf_counter()
     spgemm_mod = importlib.import_module("outerspace_tpu_torch.ops.spgemm")
     real_k2 = spgemm_mod.merge_epilogue_scan
-    real_pc, real_le = chain.prune_compact, chain.loop_expand
-    caught = {"K2_64": None, "prune_compact_64": None, "loop_expand_64": None}
+    real_pc, real_le, real_lc = chain.prune_compact, chain.loop_expand, chain.loop_compact
+    caught = {"K2_64": None, "prune_compact_64": None, "loop_expand_64": None,
+              "loop_compact_64": None}
 
     def catch_k2(key, vals, pad_count, *, n_cols, sentinel_row):
         if key.dtype == torch.int64 and (caught["K2_64"] is None
@@ -1025,29 +1096,36 @@ def _wide_phase(torch, np, dev, kernels) -> dict:
             caught["loop_expand_64"] = (tuple(t.clone() for t in args), dict(p_pad=p_pad, m=m))
         return real_le(*args, p_pad=p_pad, m=m)
 
+    def catch_lc(*args, **kw):
+        if caught["loop_compact_64"] is None or (
+                args[0].numel() > caught["loop_compact_64"][0][0].numel()):
+            caught["loop_compact_64"] = (tuple(t.clone() for t in args), kw)
+        return real_lc(*args, **kw)
+
     for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
-    spgemm_mod.merge_epilogue_scan, chain.prune_compact, chain.loop_expand = (
-        catch_k2, catch_pc, catch_le)
+    spgemm_mod.merge_epilogue_scan, chain.prune_compact, chain.loop_expand, chain.loop_compact = (
+        catch_k2, catch_pc, catch_le, catch_lc)
     try:
         graph.mcl_run(prep).to_csr()
     finally:
-        spgemm_mod.merge_epilogue_scan, chain.prune_compact, chain.loop_expand = (
-            real_k2, real_pc, real_le)
+        (spgemm_mod.merge_epilogue_scan, chain.prune_compact, chain.loop_expand,
+         chain.loop_compact) = (real_k2, real_pc, real_le, real_lc)
     torch.cuda.synchronize()
     counts = {name: k.launches for name, k in kernels.items()}
     stage1 = _stage1_launches(prep["tplan"])
     want_counts = dict(stage1, K2=stage1["K2"] + MCL_ITERS, K4=0, K5=0, prune_compact=0,
                        K2_64=MCL_ITERS - 1, prune_compact_64=1, loop_expand=0,
-                       loop_expand_64=MCL_ITERS - 1)
+                       loop_expand_64=MCL_ITERS - 1, loop_compact=0,
+                       loop_compact_64=MCL_ITERS - 1)
     if counts != want_counts or prep["ran_with"]["p_pad"] != prep["p_pad"]:
         raise RuntimeError(f"warm wide mcl_run launches {counts}, want {want_counts} on the "
                            f"fast path")
     print(f"lfr19_k20_mu03 warm mcl_run (n {n}, flow nnz {flow.nnz}, "
           f"{len(getattr(prep['tplan'], 'parts', [0]))} first-squaring parts): launches {counts} "
           f"(the first squaring's {stage1}, prune_compact_64 once, K2 once a column "
-          f"normalisation, loop_expand_64 and K2_64 once a loop iteration)")
+          f"normalisation, loop_expand_64, K2_64 and loop_compact_64 once a loop iteration)")
     del prep, flow
     torch.cuda.empty_cache()
 
@@ -1138,12 +1216,18 @@ def _wide_phase(torch, np, dev, kernels) -> dict:
     le_row = _loop_expand_row(torch, loop_expand, *caught.pop("loop_expand_64"), spin,
                               "lfr19_k20_mu03's largest loop expand")
     _phase("wide path: loop_expand_64", t0)
+
+    # loop_compact_64 on the largest loop compaction
+    t0 = time.perf_counter()
+    lc_row = _loop_compact_row(torch, compact, *caught.pop("loop_compact_64"), spin,
+                               "lfr19_k20_mu03's largest loop compaction")
+    _phase("wide path: loop_compact_64", t0)
     return {"launches": counts,
             "K2_64": {"err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound": k2_bound,
                       "by": k2_by},
             "prune_compact_64": {"err": pc_err, "ms": pc_ms, "plain_ms": pc_plain_ms,
                                  "bound": pc_bound, "by": pc_by},
-            "loop_expand_64": le_row}
+            "loop_expand_64": le_row, "loop_compact_64": lc_row}
 
 
 def _cli_phase(torch, np, dev, kernels, splits, tri_want: int, mcl_clusters_want: int,
@@ -2825,7 +2909,7 @@ def main() -> int:
                 "library_ms": library_ms}
 
     # the MCL path's warm run launches them too
-    for k in ("K1", "K2", "prune_compact", "loop_expand"):
+    for k in ("K1", "K2", "prune_compact", "loop_expand", "loop_compact"):
         launches[k] += mcl_launches[k]
     for k, c in wide["launches"].items():  # and the wide path's warm run
         launches[k] += c
@@ -2867,7 +2951,13 @@ def main() -> int:
                wide["prune_compact_64"]),
               ("loop_expand_64 (the MCL loop squaring's expand into 64-bit keys)",
                "outerspace_tpu_torch/csrc/loop_expand.cu", "loop_expand_64",
-               wide["loop_expand_64"]))),
+               wide["loop_expand_64"]),
+              ("loop_compact (the MCL loop squaring's prune and in-order compaction, biased "
+               "32-bit keys)", "outerspace_tpu_torch/csrc/prune_compact.cu", "loop_compact",
+               mcl_launches["loop_compact row"]),
+              ("loop_compact_64 (the MCL loop squaring's prune and in-order compaction, 64-bit "
+               "keys)", "outerspace_tpu_torch/csrc/prune_compact.cu", "loop_compact_64",
+               wide["loop_compact_64"]))),
     ]}
     print(json.dumps(record))
     print(_card_line())

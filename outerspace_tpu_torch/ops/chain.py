@@ -37,9 +37,11 @@ products run K1 / K3 (the first squaring) and K2 (every merge, and the
 per-column sums of the column normalisation with ``n_cols=1``). On the
 card the prune and compaction after the staged chain's first squaring is
 one kernel of its own (``ops/kernels/compact.py``), since that step
-streams the largest stream of the run, and so is each loop squaring's
+streams the largest stream of the run, and so are each loop squaring's
 gather expand (``ops/kernels/loop_expand.py``), which fills hundreds of
-millions of product slots on a large flow. Where the JAX code works in
+millions of product slots on a large flow, and its prune and in-order
+compaction (``ops/kernels/compact.py:loop_compact``), which reads them
+back. Where the JAX code works in
 uint32, the port carries the values in int64, which is exact below 2³²;
 the keys that come out are bit-equal to the JAX package's.
 
@@ -59,9 +61,11 @@ from outerspace_tpu_torch.ops.gather_pipeline import GatherPipelinePlan, spgemm_
 from outerspace_tpu_torch.ops.kernels.compact import (
     _pack,
     _sentinel,
+    _to_front,
     _ukey,
     _unpack,
     key_dtype,
+    loop_compact,
     prune_compact,
 )
 from outerspace_tpu_torch.ops.kernels.loop_expand import loop_expand
@@ -95,20 +99,6 @@ def _f32(x: float) -> float:
     """``x`` rounded to float32, so comparisons with float32 tensors use
     the value the JAX package compares with."""
     return float(np.float32(x))
-
-
-def _to_front(keep, size: int, *streams):
-    """``streams`` are (stream, fill) pairs: each stream's ``keep`` slots
-    moved to its front in order, to length ``size`` (kept slots past it
-    dropped), the tail holding ``fill``."""
-    dest = torch.cumsum(keep, 0, dtype=torch.int64) - 1
-    # dropped slots go to a trash slot at ``size``
-    dest = torch.where(keep & (dest < size), dest, size)
-    outs = []
-    for s, fill in streams:
-        out = torch.full((size + 1,), fill, dtype=s.dtype, device=s.device)
-        outs.append(out.scatter_(0, dest, s)[:size])
-    return tuple(outs)
 
 
 def _fit(key, val, size: int):
@@ -306,10 +296,11 @@ def _mcl_iteration(state, *, p_pad: int, elem_pad: int, m: int, inflation: float
     f = (k, c) pairs with CSC column k of the same stream. The merge
     sorts by C's CSC key, so its output is already in the loop's order;
     the survivors of the prune (on the raw merged values: v^p > t ⟺
-    v > t^(1/p)) are front-compacted, in order, to ``elem_pad`` slots,
-    then powered and column-normalised (K2 with ``n_cols=1``). The
-    products take ``p_pad`` slots; :func:`loop_expand` reads each
-    product's (row, value) by index (one kernel on the card).
+    v > t^(1/p)) are front-compacted, in order, to ``elem_pad`` slots
+    (:func:`loop_compact`, one kernel on the card), then powered and
+    column-normalised (K2 with ``n_cols=1``). The products take
+    ``p_pad`` slots; :func:`loop_expand` reads each product's (row,
+    value) by index (one kernel on the card).
 
     ``ok`` gathers every budget: P (exact in int64) within ``p_pad``
     and the survivors within ``elem_pad``."""
@@ -334,11 +325,10 @@ def _mcl_iteration(state, *, p_pad: int, elem_pad: int, m: int, inflation: float
     _, _, v2, valid2, _ = merge_epilogue(key_s, v_s, m, m, key_s.shape[0])
     with span("compact", device=dev):
         thr_root = _f32(float(threshold) ** (1.0 / float(inflation)))
-        v2r = torch.where(valid2, torch.clamp(v2, min=0.0), 0.0)
-        survive = valid2 & (v2r > thr_root)
-        ok = ok & (survive.sum() <= elem_pad)
         # the merged stream is sorted, so compaction in order keeps it sorted
-        k_next, vp_next = _to_front(survive, elem_pad, (key_s, sent), (v2r, 0.0))
+        k_next, vp_next, fits = loop_compact(key_s, v2, valid2, thr_root=thr_root,
+                                             elem_pad=elem_pad)
+        ok = ok & fits
         vp_next = torch.pow(vp_next, inflation)
         starts_next = _column_starts(k_next, m)
         colsum = _csc_colnorm_sorted(_col_keys(k_next, m), vp_next, m, starts_next)

@@ -1,23 +1,29 @@
-"""The prune and compaction after the MCL chain's first squaring: the CUDA
-kernel's wrapper and its plain PyTorch version.
+"""The prune and compaction of the MCL chain's merged streams: the CUDA
+kernels' wrappers and their plain PyTorch versions.
 
-Replaces no Pallas kernel: the JAX package prunes and compacts the first
-squaring's merged stream with XLA ops in its ``mcl_whole_traced`` (the
-prune, then a compaction and a sort). A slot survives iff it is valid
-and max(v, 0) > ``thr_root``; each survivor becomes the biased CSC key
-``col·m + row − 2³¹`` with the value max(v, 0), in the first of
-``elem_pad`` slots, the rest (INT32_MAX, 0). The survivors come in no
-set order: the caller sorts the ``elem_pad`` slots, and since K2 merged
-the stream their keys are unique, so the sorted result does not depend
-on it. ``ok``: the survivors fit ``elem_pad``, so that every one of
-them is kept. The kernel source is ``csrc/prune_compact.cu``: it reads
-5 bytes a slot (value and valid) and the survivors' rows and columns.
+Replace no Pallas kernel: the JAX package prunes and compacts these
+streams with XLA ops in its ``mcl_whole_traced`` and ``_mcl_iteration``.
+A slot survives iff it is valid and max(v, 0) > ``thr_root``; each
+survivor goes with the value max(v, 0) to the first of ``elem_pad``
+slots, the rest (the sentinel, 0). ``ok``: the survivors fit
+``elem_pad``, so that every one of them is kept. The kernel source is
+``csrc/prune_compact.cu``: it reads 5 bytes a slot (value and valid).
+
+- :func:`prune_compact`, after the first squaring (rows and columns in):
+  each survivor becomes the biased CSC key ``col·m + row − 2³¹``, in no
+  set order: the caller sorts the ``elem_pad`` slots, and since K2
+  merged the stream their keys are unique, so the sorted result does
+  not depend on it.
+- :func:`loop_compact`, after each loop squaring (the sorted keys in):
+  the survivors keep their keys and their order, so the output stays
+  sorted, bit-equal to :func:`_to_front` of the survivors.
 
 From m² ≥ 2³² on (:func:`key_dtype`) the keys pass 32 bits: they are
 the plain int64 ``col·m + row``, the fill INT64_MAX, and CUDA tensors
-take the kernel's 64-bit instantiation (:data:`KERNEL_64`). The chain's
-key format lives here, for the chain and the loop expand alike:
-:func:`key_dtype`, :func:`_sentinel`, :func:`_pack`, :func:`_unpack`.
+take the kernels' 64-bit instantiations (:data:`KERNEL_64`,
+:data:`LOOP_KERNEL_64`). The chain's key format lives here, for the
+chain and the loop expand alike: :func:`key_dtype`, :func:`_sentinel`,
+:func:`_pack`, :func:`_unpack`.
 """
 
 from __future__ import annotations
@@ -38,6 +44,13 @@ _ARGS = ([ctypes.c_void_p] * 4
          + [ctypes.c_int, ctypes.c_void_p])
 KERNEL = CudaKernel("prune_compact", "prune_compact_launch", _ARGS)
 KERNEL_64 = CudaKernel("prune_compact", "prune_compact64_launch", _ARGS)
+_LOOP_ARGS = ([ctypes.c_void_p] * 3
+              + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
+              + [ctypes.c_void_p] * 4
+              + [ctypes.c_int, ctypes.c_void_p])
+LOOP_KERNEL = CudaKernel("prune_compact", "loop_compact_launch", _LOOP_ARGS)
+LOOP_KERNEL_64 = CudaKernel("prune_compact", "loop_compact64_launch", _LOOP_ARGS)
+TILE = 8192  # the kernels' slots a block
 
 
 def key_dtype(m: int, n: int | None = None) -> torch.dtype:
@@ -72,22 +85,31 @@ def _unpack(key: torch.Tensor, n_minor: int):
     return (ku // n_minor).to(torch.int32), (ku % n_minor).to(torch.int32)
 
 
-def _check(rows, cols, vals, valid, m: int, elem_pad: int):
-    if rows.dtype != torch.int32 or cols.dtype != torch.int32:
-        raise TypeError(f"want int32 rows and cols, got {rows.dtype}, {cols.dtype}")
+def _check_streams(streams, elem_pad: int):
+    """What both kernels take: float32 values and bool valid flags (the
+    last two of ``streams``), equal contiguous 1-D streams on one device,
+    and sizes in the int32 range."""
+    *_, vals, valid = streams
     if vals.dtype != torch.float32 or valid.dtype != torch.bool:
         raise TypeError(f"want float32 vals and bool valid, got {vals.dtype}, {valid.dtype}")
-    streams = (rows, cols, vals, valid)
-    if any(s.dim() != 1 or s.shape != rows.shape for s in streams):
+    first = streams[0]
+    if any(s.dim() != 1 or s.shape != first.shape for s in streams):
         raise ValueError(f"want equal 1-D streams, got {[tuple(s.shape) for s in streams]}")
     if not all(s.is_contiguous() for s in streams):
         raise ValueError("streams must be contiguous")
-    if any(s.device != rows.device for s in streams):
+    if any(s.device != first.device for s in streams):
         raise ValueError(f"streams on {[str(s.device) for s in streams]}")
-    if rows.shape[0] >= 2**31:
-        raise ValueError(f"a stream of {rows.shape[0]} slots exceeds the int32 index space")
-    if not 0 < m < 2**31 or not 0 <= elem_pad < 2**31:
-        raise ValueError(f"m {m} / elem_pad {elem_pad} out of int32 range")
+    if first.shape[0] >= 2**31:
+        raise ValueError(f"a stream of {first.shape[0]} slots exceeds the int32 index space")
+    if not 0 <= elem_pad < 2**31:
+        raise ValueError(f"elem_pad {elem_pad} out of int32 range")
+
+
+def _check_aligned(vals, valid):
+    """The kernels' vector loads: ``vals`` 16-byte, ``valid`` 4-byte aligned."""
+    if vals.data_ptr() % 16 or valid.data_ptr() % 4:
+        raise ValueError("vals must start 16-byte and valid 4-byte aligned (the kernel's "
+                         "vector loads)")
 
 
 def prune_compact(rows, cols, vals, valid, *, thr_root: float, m: int, elem_pad: int):
@@ -103,16 +125,18 @@ def prune_compact(rows, cols, vals, valid, *, thr_root: float, m: int, elem_pad:
     ``csrc/prune_compact.cu`` once (:data:`KERNEL` or, for int64 keys,
     :data:`KERNEL_64`), and need ``vals`` 16-byte and ``valid`` 4-byte
     aligned (the kernel's vector loads)."""
-    _check(rows, cols, vals, valid, m, elem_pad)
+    if rows.dtype != torch.int32 or cols.dtype != torch.int32:
+        raise TypeError(f"want int32 rows and cols, got {rows.dtype}, {cols.dtype}")
+    if not 0 < m < 2**31:
+        raise ValueError(f"m {m} out of int32 range")
+    _check_streams((rows, cols, vals, valid), elem_pad)
     dev = rows.device
     if dev.type == "cpu":
         return prune_compact_plain(rows, cols, vals, valid, thr_root=thr_root, m=m,
                                    elem_pad=elem_pad)
     if dev.type != "cuda":
         raise ValueError(f"the prune_compact kernel runs on cuda, not {dev}")
-    if vals.data_ptr() % 16 or valid.data_ptr() % 4:
-        raise ValueError("vals must start 16-byte and valid 4-byte aligned (the kernel's "
-                         "vector loads)")
+    _check_aligned(vals, valid)
     wide = key_dtype(m) == torch.int64
     kp = torch.empty(elem_pad, dtype=torch.int64 if wide else torch.int32, device=dev)
     vp = torch.empty(elem_pad, dtype=torch.float32, device=dev)
@@ -142,3 +166,62 @@ def prune_compact_plain(rows, cols, vals, valid, *, thr_root: float, m: int, ele
     kp[:n] = _pack(cols[take], rows[take], m, dtype)
     vp[:n] = v[take]
     return kp, vp, ok
+
+
+def _to_front(keep, size: int, *streams):
+    """``streams`` are (stream, fill) pairs: each stream's ``keep`` slots
+    moved to its front in order, to length ``size`` (kept slots past it
+    dropped), the tail holding ``fill``."""
+    dest = torch.cumsum(keep, 0, dtype=torch.int64) - 1
+    # dropped slots go to a trash slot at ``size``
+    dest = torch.where(keep & (dest < size), dest, size)
+    outs = []
+    for s, fill in streams:
+        out = torch.full((size + 1,), fill, dtype=s.dtype, device=s.device)
+        outs.append(out.scatter_(0, dest, s)[:size])
+    return tuple(outs)
+
+
+def loop_compact(key, vals, valid, *, thr_root: float, elem_pad: int):
+    """A loop squaring's merged stream (the sorted keys of
+    :func:`key_dtype`, float32 vals, bool valid; K2's output) pruned and
+    compacted in order into ``elem_pad`` slots. Returns (kp [elem_pad] in
+    ``key``'s dtype, vp float32[elem_pad], ok 0-d bool): the survivors'
+    keys and max(v, 0) in stream order, then (the sentinel, 0).
+
+    CPU tensors run :func:`loop_compact_plain`; CUDA tensors launch
+    ``csrc/prune_compact.cu``'s loop kernels once (:data:`LOOP_KERNEL`
+    or, for int64 keys, :data:`LOOP_KERNEL_64`), and need ``vals``
+    16-byte and ``valid`` 4-byte aligned (the kernel's vector loads)."""
+    if key.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"want int32 or int64 keys, got {key.dtype}")
+    _check_streams((key, vals, valid), elem_pad)
+    dev = key.device
+    if dev.type == "cpu":
+        return loop_compact_plain(key, vals, valid, thr_root=thr_root, elem_pad=elem_pad)
+    if dev.type != "cuda":
+        raise ValueError(f"the loop_compact kernel runs on cuda, not {dev}")
+    _check_aligned(vals, valid)
+    kp = torch.empty(elem_pad, dtype=key.dtype, device=dev)
+    vp = torch.empty(elem_pad, dtype=torch.float32, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    # the ticket counter, then one status word a tile
+    state = torch.empty(-(-key.shape[0] // TILE) + 1, dtype=torch.int64, device=dev)
+    (LOOP_KERNEL_64 if key.dtype == torch.int64 else LOOP_KERNEL).launch(
+        tensor_ptr(key), tensor_ptr(vals), tensor_ptr(valid), key.shape[0], float(thr_root),
+        elem_pad, tensor_ptr(kp), tensor_ptr(vp), tensor_ptr(ok), tensor_ptr(state),
+        *device_args(dev),
+    )
+    return kp, vp, ok
+
+
+def loop_compact_plain(key, vals, valid, *, thr_root: float, elem_pad: int):
+    """The same function in plain PyTorch, on any device: the prune, then
+    :func:`_to_front` of the survivors."""
+    sent = _sentinel(key.dtype)
+    v2r = torch.where(valid, torch.clamp(vals, min=0.0), 0.0)
+    survive = valid & (v2r > thr_root)
+    ok = survive.sum() <= elem_pad
+    # the merged stream is sorted, so compaction in order keeps it sorted
+    k_next, vp_next = _to_front(survive, elem_pad, (key, sent), (v2r, 0.0))
+    return k_next, vp_next, ok

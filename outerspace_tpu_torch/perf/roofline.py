@@ -235,21 +235,14 @@ def predict_mcl_sharded_iteration(plan, cfg: GPUConfig = GPUConfig()) -> float:
 
 # Per-slot bytes of the MCL chain's stages (ops/chain.py), each input
 # read once and each output written once:
-# the first squaring's prune and compaction (csrc/prune_compact.cu), per
-# input slot: value and valid in; the survivors' rows and columns read
-# and their keys and values written are bounded by the element slots
+# the prune and compaction of a merged stream (csrc/prune_compact.cu,
+# after the first squaring and after each loop squaring), per input slot:
+# value and valid in; the survivors' keys (or rows and columns) read and
+# their keys and values written are bounded by the element slots
 # (_COMPACT_OUT_BYTES)
-_PRUNE_COMPACT1_BYTES = 4 + 1
-# the loop's prune of the merged stream: value and valid in; the clamped
-# value and the survivor flag out, the survivor flag read again
-_PRUNE_BYTES = (4 + 1) + (4 + 1) + 1 + 4
-# the loop's _to_front, per input slot: the survivor flag in, its int64
-# running count out, the destinations made, then per stream (key, value)
-# the destination and a 4-byte element in
-_COMPACT_IN_BYTES = (1 + 8) + (8 + 1 + 8) + 2 * (8 + 4)
-# a compaction, per output slot: the two streams filled, then written
-# (_to_front), or the survivors' rows and columns read and their keys and
-# values written (the first squaring's kernel)
+_PRUNE_COMPACT_BYTES = 4 + 1
+# a compaction, per output slot: the survivors' keys (or rows and
+# columns) read and their keys and values written
 _COMPACT_OUT_BYTES = 2 * (4 + 4)
 # after each compaction, per element slot: the power (value, key in;
 # value out), the column starts (the keys searched once, one probe per
@@ -301,7 +294,7 @@ def predict_mcl_time(
     l1 = nnz_stage1_stream or p_stage1
     t = predict_multiply_time(p_stage1, elem_pad, elem_pad, cfg)
     t += predict_merge_time(l1, cfg, parts=stage1_parts)
-    t += _stream_time(cfg, l1, _PRUNE_COMPACT1_BYTES)
+    t += _stream_time(cfg, l1, _PRUNE_COMPACT_BYTES)
     t += predict_sort_time(elem_pad, cfg)
     t += _stream_time(cfg, elem_pad, _COMPACT_OUT_BYTES + _ELEM_TAIL_BYTES)
     for pp in p_pads:
@@ -309,7 +302,7 @@ def predict_mcl_time(
         t += _stream_time(cfg, elem_pad, _ELEM_PREP_BYTES)
         t += _stream_time(cfg, pp, _LOOP_EXPAND_BYTES)
         t += predict_merge_time(pp, cfg)
-        t += _stream_time(cfg, pp, _PRUNE_BYTES + _COMPACT_IN_BYTES)
+        t += _stream_time(cfg, pp, _PRUNE_COMPACT_BYTES)
         t += _stream_time(cfg, elem_pad, _COMPACT_OUT_BYTES + _ELEM_TAIL_BYTES)
     t += predict_sort_time(elem_pad, cfg)
     t += _stream_time(cfg, elem_pad, _FINAL_BYTES)

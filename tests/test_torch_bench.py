@@ -156,7 +156,8 @@ def test_bench_small_cpu_jax_blocked(tmp_path):
         assert fields and all(rec[f] is True for f in fields), rec
         assert rec["launches"] == dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "prune_compact",
                                                  "K2_64", "prune_compact_64", "loop_expand",
-                                                 "loop_expand_64"),
+                                                 "loop_expand_64", "loop_compact",
+                                                 "loop_compact_64"),
                                                 0)  # plain versions
     a2_median = np.median([r["speedup"] for r in records[:4]])
     assert head["value"] == round(float(a2_median), 3)

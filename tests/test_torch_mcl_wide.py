@@ -371,3 +371,40 @@ def test_wide_mcl_run_on_card_launches_the_64_bit_kernels(cuda, wide):
         # one loop merge per iteration; the column sums keep 32-bit column keys
         assert launched["K2_64"] == ITERS - 1 and launched["K2"] >= ITERS
         assert_flows_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_wide_mcl_run_on_card_compacts_each_loop_squaring_by_the_kernel(cuda, wide, monkeypatch):
+    """A warm wide run launches ``loop_compact_64`` once a loop iteration,
+    the 32-bit loop compaction never, and no loop iteration reaches
+    ``_to_front`` (whose scatters the kernel replaced there; the fetch
+    to CSR still compacts by it)."""
+    g, want = wide
+    in_loop, fronts = [], []
+    real_front, real_iteration = compact._to_front, chain._mcl_iteration
+
+    def front_spy(*args, **kw):
+        if in_loop:
+            fronts.append(args[1])
+        return real_front(*args, **kw)
+
+    def iteration_spy(*args, **kw):
+        in_loop.append(True)
+        try:
+            return real_iteration(*args, **kw)
+        finally:
+            in_loop.pop()
+
+    monkeypatch.setattr(compact, "_to_front", front_spy)
+    monkeypatch.setattr(chain, "_to_front", front_spy)
+    monkeypatch.setattr(chain, "_mcl_iteration", iteration_spy)
+    prep = graph.mcl_prepare(graph._mcl_setup(g), iters=ITERS, device=cuda)
+    graph.mcl_run(prep).to_csr()  # a first run: the fast path's budgets
+    for _ in range(2):
+        fronts.clear()
+        before = {k: v.launches for k, v in counters().items()}
+        got = graph.mcl_run(prep).to_csr()
+        launched = {k: v.launches - before[k] for k, v in counters().items()}
+        assert launched["loop_compact_64"] == ITERS - 1 and launched["loop_compact"] == 0
+        assert fronts == []
+        assert_flows_equal(got, want)
