@@ -320,12 +320,33 @@ def markov_cluster_sharded(
     :func:`markov_cluster` does, with the same preamble and convergence
     test. ``report`` receives the iterations run and whether the flow
     converged."""
+    coo = adj.to_coo() if not isinstance(adj, COO) else adj
+    return markov_cluster_sharded_flow(
+        _mcl_setup(coo), mesh, axes=axes, kx=kx, ny=ny, expansion=expansion,
+        inflation=inflation, iters=iters, prune_threshold=prune_threshold, report=report)
+
+
+def markov_cluster_sharded_flow(
+    flow: CSR,
+    mesh,
+    axes: tuple[str, str] | str = ("x", "y"),
+    kx: int | None = None,
+    ny: int = 1,
+    expansion: int = 2,
+    inflation: float = 2.0,
+    iters: int = 10,
+    prune_threshold: float = 1e-4,
+    report: dict | None = None,
+) -> CSR:
+    """:func:`markov_cluster_sharded` from a flow already set up
+    (:func:`_mcl_setup`): the exact fallback of the device-resident loop
+    (``shard.mcl``), which holds the flow and not the adjacency. Past
+    m² = 2³² each squaring's plan is rebased to part-local keys
+    (``shard.tiled.shard_plan_tiled``)."""
     from outerspace_tpu_torch.shard.spgemm_sharded import allgather_to_csr
     from outerspace_tpu_torch.shard.tiled import shard_plan_tiled, spgemm_sharded_tiled
 
-    coo = adj.to_coo() if not isinstance(adj, COO) else adj
     kx, ny = _resolve_mesh_dims(mesh, kx, ny)
-    flow = _mcl_setup(coo)
 
     def mult_sharded(a: CSR, b: CSR) -> CSR:
         plan = shard_plan_tiled(a.to_csc(), b, kx=kx, ny=ny)

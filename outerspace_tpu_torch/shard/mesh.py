@@ -23,7 +23,10 @@ The backend is the caller's to name:
 
 :func:`run_world` spawns the ranks, meets them at a ``file://``
 rendezvous in a temporary directory, runs one function on each, and
-raises in the caller any exception a rank raised.
+raises in the caller any exception a rank raised. A :class:`LiveWorld`
+keeps its ranks alive across calls instead (a world costs seconds to
+start): the calling process is rank 0, and ranks 1 to n − 1 run one
+step each time it calls.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ import datetime
 import functools
 import os
 import pickle
+import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -236,26 +241,35 @@ def _to_host(x):
     return x
 
 
-def _rank_main(rank, world, tmp, backend, device, timeout, threads, results):
+def _join_world(rank, world, tmp, backend, device, timeout, threads):
+    """A spawned rank's start: its device and threads, the job's function
+    and arguments (from ``tmp/job.pkl``), the process group. Returns
+    ``(fn, args)``."""
     global _RANK_DEVICE
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    torch.set_num_threads(max(1, threads // world))
+    _RANK_DEVICE = dev
+    with open(os.path.join(tmp, "job.pkl"), "rb") as f:
+        fn, args = pickle.load(f)
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+        world_size=world, rank=rank, timeout=datetime.timedelta(seconds=timeout),
+        device_id=dev if backend == "nccl" else None,
+    )
+    return fn, args
+
+
+def _rank_main(rank, world, tmp, backend, device, timeout, threads, results):
     try:
-        import torch
         import torch.distributed as dist
 
-        dev = torch.device(device)
-        if dev.type == "cuda":
-            dev = torch.device("cuda", rank % torch.cuda.device_count())
-            torch.cuda.set_device(dev)
-        torch.set_num_threads(max(1, threads // world))
-        _RANK_DEVICE = dev
-        with open(os.path.join(tmp, "job.pkl"), "rb") as f:
-            fn, args = pickle.load(f)
-        dist.init_process_group(
-            backend, init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
-            world_size=world, rank=rank,
-            timeout=datetime.timedelta(seconds=timeout),
-            device_id=dev if backend == "nccl" else None,
-        )
+        fn, args = _join_world(rank, world, tmp, backend, device, timeout, threads)
         try:
             out = _to_host(fn(*args))
         finally:
@@ -345,3 +359,206 @@ def run_world(fn, world_size: int, *, backend: str, device: str = "cuda", args=(
     if failure is not None:
         raise RuntimeError(failure)
     return [out[r] for r in range(world_size)]
+
+
+def _live_main(rank, world, tmp, backend, device, timeout, threads, commands, results):
+    """A rank of a :class:`LiveWorld`: join the world, make its step
+    function, then run one step per command until told to stop, or
+    until the process that started it is gone."""
+    parent = os.getppid()
+    try:
+        import torch.distributed as dist
+
+        fn, args = _join_world(rank, world, tmp, backend, device, timeout, threads)
+        step = fn(*args)
+        results.put((rank, "ready", None))
+        while True:
+            try:
+                cmd = commands.get(timeout=1.0)
+            except Exception:  # queue.Empty: the starting process may have gone
+                if os.getppid() != parent:
+                    os._exit(1)
+                continue
+            if cmd is None:
+                break
+            results.put((rank, "done", _to_host(step())))
+        dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+
+
+class LiveWorld:
+    """A world of ``world_size`` ranks kept alive across calls; the
+    calling process is rank 0 (on card 0, or the CPU), ranks 1 to
+    n − 1 are spawned as :func:`run_world`'s are (card ``rank % cards``,
+    a ``file://`` rendezvous in a temporary directory).
+
+    On each spawned rank ``fn(*args)`` runs once, after the process
+    group is up, and returns that rank's step function; ``fn`` must be
+    importable by name. The caller then makes rank 0's own part
+    (the same meshes, in the same order) and calls :meth:`call` with
+    rank 0's step: every spawned rank runs its step, rank 0 runs its
+    own, and the call returns rank 0's result and the others' (tensors
+    as numpy arrays, in rank order).
+
+    A rank that raises, or dies, while rank 0 may be waiting on it in a
+    collective (at start-up, or during a call) ends this process: its
+    error goes to stderr, every spawned rank is killed, and the process
+    exits with code 1, since a collective that rank 0 waits in cannot be
+    given up from Python. Outside a call it closes the world, and the
+    next call raises. An exception of rank 0's own step closes the world
+    and is raised. :meth:`close` stops and joins every spawned rank."""
+
+    def __init__(self, world_size: int, fn, args=(), *, backend: str, device: str = "cuda",
+                 timeout: float = 600.0):
+        import torch
+        import torch.distributed as dist
+        import torch.multiprocessing as mp
+
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        dev = torch.device(device)
+        if backend == "nccl" and (dev.type != "cuda" or world_size > torch.cuda.device_count()):
+            raise ValueError(f"nccl runs one rank per card: {world_size} ranks, "
+                             f"{torch.cuda.device_count() if dev.type == 'cuda' else 0} cards")
+        if dist.is_initialized():
+            raise RuntimeError("this process is already in a process group")
+        self.world_size, self.timeout = world_size, timeout
+        self.device = torch.device("cuda", 0) if dev.type == "cuda" else dev
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        self._tmp = tempfile.TemporaryDirectory(prefix="outerspace_live_")
+        tmp = self._tmp.name
+        with open(os.path.join(tmp, "job.pkl"), "wb") as f:
+            pickle.dump((fn, tuple(args)), f, protocol=pickle.HIGHEST_PROTOCOL)
+        ctx = mp.get_context("spawn")
+        threads = torch.get_num_threads() if dev.type == "cpu" else (os.cpu_count() or 1)
+        self._results = ctx.Queue()
+        self._commands = [ctx.Queue() for _ in range(1, world_size)]
+        self._procs = [ctx.Process(target=_live_main, daemon=True,
+                                   args=(r, world_size, tmp, backend, device, timeout, threads,
+                                         self._commands[r - 1], self._results))
+                       for r in range(1, world_size)]
+        self._lock = threading.Lock()
+        self._waiting = True  # rank 0 may wait in a collective on the others
+        self._failure = None
+        self._closed = False
+        for p in self._procs:
+            p.start()
+        self._stop = threading.Event()
+        self._inbox: dict = {}
+        self._watch = threading.Thread(target=self._watchdog, daemon=True)
+        self._watch.start()
+        dist.init_process_group(
+            backend, init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+            world_size=world_size, rank=0, timeout=datetime.timedelta(seconds=timeout),
+            device_id=self.device if backend == "nccl" else None,
+        )
+        with self._lock:
+            self._waiting = False
+
+    def _fail(self, message: str) -> None:
+        """A spawned rank failed: end the process if rank 0 may be
+        waiting on it, else close the world."""
+        with self._lock:
+            self._failure = self._failure or message
+            waiting = self._waiting
+        if waiting:
+            print(f"LiveWorld: {message}", file=sys.stderr, flush=True)
+            self._kill()
+            os._exit(1)
+
+    def _watchdog(self) -> None:
+        while not self._stop.is_set():
+            try:
+                rank, kind, value = self._results.get(timeout=0.2)
+            except Exception:  # queue.Empty: look at the ranks
+                dead = [r for r, p in enumerate(self._procs, 1) if p.exitcode is not None]
+                if dead and not self._closed:
+                    self._fail(f"rank {dead[0]} exited with code "
+                               f"{self._procs[dead[0] - 1].exitcode}")
+                continue
+            if kind == "error":
+                self._fail(f"rank {rank} raised:\n{value}")
+            else:
+                with self._lock:
+                    self._inbox.setdefault(kind, {})[rank] = value
+
+    def _await(self, kind: str) -> list:
+        """Every spawned rank's message of ``kind``, in rank order."""
+        deadline = time.monotonic() + self.timeout
+        while True:
+            with self._lock:
+                got = self._inbox.get(kind, {})
+                if len(got) == self.world_size - 1:
+                    self._inbox[kind] = {}
+                    return [got[r] for r in range(1, self.world_size)]
+                failure = self._failure
+            if failure is not None:
+                raise RuntimeError(f"the world is closed: {failure}")
+            if time.monotonic() > deadline:
+                self._fail(f"the ranks did not answer within {self.timeout} s")
+            time.sleep(0.001)
+
+    def ready(self) -> None:
+        """Wait until every spawned rank has made its step function."""
+        with self._lock:
+            self._waiting = True
+        self._await("ready")
+        with self._lock:
+            self._waiting = False
+
+    def call(self, step0):
+        """Every spawned rank runs its step and rank 0 runs ``step0()``;
+        returns (rank 0's result, [the other ranks' results])."""
+        if self._closed or self._failure is not None:
+            raise RuntimeError(f"the world is closed: {self._failure or 'closed'}")
+        with self._lock:
+            self._waiting = True
+        for q in self._commands:
+            q.put(True)
+        try:
+            out = step0()
+        except BaseException:
+            self._failure = self._failure or "rank 0 raised"
+            self.close()
+            raise
+        others = self._await("done")
+        with self._lock:
+            self._waiting = False
+        return out, others
+
+    def _kill(self) -> None:
+        for p in self._procs:
+            if p.is_alive():
+                p.kill()
+        for p in self._procs:
+            p.join(5)
+
+    def close(self) -> None:
+        """Stop every spawned rank and join it (killed if it has not
+        ended within seconds), then leave the process group."""
+        import torch.distributed as dist
+
+        if self._closed:
+            return
+        self._closed = True
+        healthy = self._failure is None
+        if healthy:
+            for q in self._commands:
+                q.put(None)
+            deadline = time.monotonic() + 10.0
+            for p in self._procs:
+                p.join(max(0.1, deadline - time.monotonic()))
+        self._stop.set()
+        self._kill()
+        if dist.is_initialized():
+            if healthy:
+                dist.destroy_process_group()
+            else:  # a collective may be pending on the dead ranks: do not wait on it
+                abort = getattr(dist.distributed_c10d, "_abort_process_group", None)
+                try:
+                    abort() if abort is not None else dist.destroy_process_group()
+                except Exception:
+                    pass
+        self._tmp.cleanup()

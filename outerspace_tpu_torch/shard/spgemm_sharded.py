@@ -72,13 +72,19 @@ def _slice_fill_buckets(starts, ends, capacity: int, ndst: int, *streams):
 
 def exchange(mesh, axis: str, *streams):
     """Each (ndst, cap) stream's row d to the rank at index d along
-    ``axis``, in one all_to_all (the streams ride as int32 lanes of one
-    buffer); returns the received streams, each flattened to nsrc·cap."""
-    lanes = [s.view(torch.int32) if s.dtype == torch.float32 else s for s in streams]
-    recv = mesh.all_to_all(torch.stack(lanes, dim=1).reshape(lanes[0].shape[0], -1), axis)
-    recv = recv.view(recv.shape[0], len(streams), -1)
-    return tuple((recv[:, i].view(s.dtype) if s.dtype == torch.float32 else recv[:, i])
-                 .reshape(-1) for i, s in enumerate(streams))
+    ``axis``, in one all_to_all; returns the received streams, each
+    flattened to nsrc·cap. The streams ride as int32 lanes of one
+    buffer, side by side in each row: a 4-byte stream (int32, float32)
+    as one lane, an int64 stream (the MCL loop's keys past m² = 2³²) as
+    two."""
+    lanes = [s.view(torch.int32) for s in streams]
+    recv = mesh.all_to_all(torch.cat(lanes, dim=1), axis)
+    out, lo = [], 0
+    for s, lane in zip(streams, lanes):
+        hi = lo + lane.shape[1]
+        out.append(recv[:, lo:hi].contiguous().view(s.dtype).reshape(-1))
+        lo = hi
+    return tuple(out)
 
 
 @dataclasses.dataclass

@@ -126,10 +126,10 @@ def _mcl_job(job, mesh, res, kernels) -> None:
     t0 = time.perf_counter()
     if job["loop"] == "device":
         coo = job["adj"] if isinstance(job["adj"], COO) else job["adj"].to_coo()
-        plan = mcl.plan_mcl_sharded_device(_mcl_setup(coo), kx=kx, ny=ny, iters=job["iters"])
+        plan = mcl.plan_mcl_sharded_device(_mcl_setup(coo), kx=kx, ny=ny, iters=job["iters"],
+                                           mesh=mesh)
         prog = mcl.build_mcl_sharded_device(plan, mesh, axes)
-        flow, res["syncs"] = _syncs(lambda: mcl.run_to_csr(prog, job["adj"], report),
-                                    mesh.device)
+        flow, res["syncs"] = _syncs(lambda: mcl.run_to_csr(prog, report), mesh.device)
     else:
         flow = markov_cluster_sharded(job["adj"], mesh, axes=axes, kx=kx, ny=ny,
                                       iters=job["iters"], report=report)

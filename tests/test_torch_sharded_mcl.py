@@ -13,7 +13,8 @@ against scipy (``tests/torch_mcl_shard_cases.py`` holds the cases):
 - a starved expansion budget falls back to the host loop, exact, and
   the report says so;
 - the plan: budgets and staged arrays equal to the JAX package's
-  wherever it plans; on the dense ``erdos_renyi(512, 512, 0.4)`` with kx
+  wherever it plans; past m² = 2³², where the JAX package refuses, keys
+  in int64; on the dense ``erdos_renyi(512, 512, 0.4)`` with kx
   = 2 the JAX plan refuses the initial flow and the port's loop returns
   scipy's answer;
 - ``perf.roofline.predict_mcl_sharded_iteration`` finite and positive.
@@ -25,6 +26,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import torch_mcl_shard_cases as mc
 from outerspace_tpu_torch.formats.csr import CSR
@@ -157,9 +159,12 @@ def test_plan_refusals():
 
     with pytest.raises(ValueError, match="square"):
         plan_mcl_sharded_device(erdos_renyi(8, 9, 0.5, seed=1).to_csr(), kx=2)
+    # past m² = 2³² the plan keys the flow in int64 (once refused)
     big = erdos_renyi(1 << 16, 1 << 16, 1e-9, seed=1)
-    with pytest.raises(ValueError, match="m\\^2 < 2\\^32"):
-        plan_mcl_sharded_device(_mcl_setup(big), kx=2)
+    flow = _mcl_setup(big)
+    plan = plan_mcl_sharded_device(flow, kx=2)
+    assert plan.key_dtype == torch.int64 and plan.flow_k.dtype == np.int64
+    assert (plan.flow_k != 2**63 - 1).sum() == flow.nnz
 
 
 @pytest.mark.parametrize("kx,ny", [(1, 1), (4, 1), (4, 2)])
